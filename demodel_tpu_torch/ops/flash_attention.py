@@ -1,0 +1,278 @@
+"""Fused flash attention: a hand-written CUDA kernel for Hopper and its
+plain PyTorch version.
+
+Counterpart of ``demodel_tpu/ops/flash_attention.py``, same public
+surface and ``(B, S, H, D)`` layout: ``flash_attention(q, k, v, kv_len,
+causal, scale, causal_offset, return_lse)`` with q ``(B, Sq, H, D)`` and
+k/v ``(B, Sk, G, D)``, G | H (GQA). ``kv_len`` bounds the valid key
+prefix and ``causal_offset`` shifts the diagonal (query i sees keys
+``<= i + offset``; default ``kv_len - Sq``); both may be scalars or
+per-batch vectors (ragged batched decode). A row with no visible key
+comes out as zeros with an LSE of :data:`NEG_INF`.
+
+Dispatch is by the tensors' device alone:
+
+- CPU tensors go to :func:`_flash_plain`, the kernel's plain version
+  (fp32 math, the same masking), which is what the tests compare with
+  the JAX package;
+- CUDA tensors go to the kernel in ``csrc/flash_attention.cu``, built
+  with nvcc at first use into ``build/torch_kernels/`` and loaded with
+  ctypes. A build or launch failure raises; nothing falls back.
+
+:data:`launches` counts kernel launches (one per call that reaches the
+card), so a run can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from demodel_tpu_torch.utils.logging import get_logger
+
+log = get_logger("ops.flash_attention")
+
+NEG_INF = -1e30
+
+#: kernel launches so far (CUDA tensors only); tests and the chip smoke
+#: reset it to 0 around the run they observe
+launches = 0
+_launch_lock = threading.Lock()
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = (_CSRC / "flash_attention.cu",)
+#: build products live beside the checkout, in a directory .gitignore lists
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+#: conventional CUDA toolkit location, tried after PATH and CUDA_HOME
+CUDA_DEFAULT = Path("/usr/local/cuda")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_HEAD_DIMS = (64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib: ctypes.CDLL | None = None
+_lib_lock = threading.Lock()
+
+
+# ------------------------------------------------------------- reference
+
+
+def _windows(kv_len, causal_offset, B: int, Sq: int, Sk: int,
+             device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-batch int32 ``(kv_len, causal_offset)`` vectors, shape (B,):
+    scalars broadcast across the batch, ``kv_len`` defaults to Sk and
+    ``causal_offset`` to ``kv_len - Sq``. A Python int becomes a fill on
+    ``device`` — no host-to-device copy, which would wait for the
+    stream on every call."""
+
+    def vec(x) -> torch.Tensor:
+        if isinstance(x, (int, np.integer)):
+            return torch.full((B,), int(x), dtype=torch.int32, device=device)
+        t = torch.as_tensor(x, dtype=torch.int32)
+        return t.to(device).expand(B).contiguous()
+
+    kv = vec(Sk if kv_len is None else kv_len)
+    off = kv - Sq if causal_offset is None else vec(causal_offset)
+    return kv, off
+
+
+def _mask(kvb: torch.Tensor, offb: torch.Tensor, Sq: int, Sk: int,
+          causal: bool) -> torch.Tensor:
+    """(B, 1, Sq, Sk) visibility: key < kv_len, and key <= query + offset
+    when causal."""
+    ki = torch.arange(Sk, device=kvb.device)[None, None, None, :]
+    qi = torch.arange(Sq, device=kvb.device)[None, None, :, None]
+    mask = ki < kvb[:, None, None, None]
+    if causal:
+        mask = mask & (ki <= qi + offb[:, None, None, None])
+    return mask
+
+
+def reference_attention_lse(q, k, v, causal: bool = True, scale=None,
+                            kv_len=None, causal_offset=None):
+    """Einsum attention (GQA-aware) returning ``(out, lse)``, the
+    numerics oracle of the JAX package: scores in q's dtype then fp32,
+    probabilities back in q's dtype. A row with no visible key averages
+    V (softmax over all-NEG_INF scores), as the JAX reference does."""
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    if G != H:
+        k = k.repeat_interleave(H // G, dim=2)
+        v = v.repeat_interleave(H // G, dim=2)
+    if scale is None:
+        scale = D ** -0.5
+    kvb, offb = _windows(kv_len, causal_offset, B, Sq, Sk, q.device)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    scores = scores.masked_fill(~_mask(kvb, offb, Sq, Sk, causal), NEG_INF)
+    lse = torch.logsumexp(scores, dim=-1)             # (B, H, Sq)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
+    return out, lse.transpose(1, 2)                   # lse → (B, Sq, H)
+
+
+def reference_attention(q, k, v, causal: bool = True, scale=None,
+                        kv_len=None, causal_offset=None):
+    return reference_attention_lse(q, k, v, causal, scale, kv_len,
+                                   causal_offset)[0]
+
+
+def _flash_plain(q, k, v, kvb, offb, causal: bool, scale: float):
+    """What the kernel computes, in plain PyTorch: fp32 scores, softmax
+    and accumulation, output in q's dtype, and rows with no visible key
+    set to zeros with an LSE of NEG_INF (the kernel's ``l == 0`` rule).
+    A row sees a key iff key 0 is visible: ``kv_len > 0``, ``Sk > 0``
+    and, when causal, ``row + offset >= 0``."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    out, lse = reference_attention_lse(q.float(), k.float(), v.float(),
+                                       causal, scale, kvb, offb)
+    seen = (kvb > 0)[:, None] & (Sk > 0)                       # (B, 1)
+    if causal:
+        seen = seen & (torch.arange(Sq, device=q.device)[None, :]
+                       + offb[:, None] >= 0)                   # (B, Sq)
+    seen = seen.expand(q.shape[0], Sq)
+    out = torch.where(seen[:, :, None, None], out, 0.0).to(q.dtype)
+    lse = torch.where(seen[:, :, None], lse, NEG_INF)
+    return out, lse
+
+
+# ---------------------------------------------------------------- kernel
+
+
+def _find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc")
+                 if os.environ.get("CUDA_HOME") else None,
+                 str(CUDA_DEFAULT / "bin" / "nvcc")):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, "
+        f"{CUDA_DEFAULT}/bin): the flash-attention kernel cannot be built")
+
+
+def build_library() -> Path:
+    """Compile ``csrc/flash_attention.cu`` for sm_90a into a shared
+    library named by a hash of the sources and flags, once per content.
+    The build writes a temporary name and renames it into place under an
+    exclusive file lock, so concurrent processes never load a half-written
+    library. Raises on a missing nvcc or a failed compile."""
+    nvcc = _find_nvcc()
+    digest = hashlib.sha256()
+    for src in SOURCES:
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"libdemodel_flash_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # the file lock exists to make every other builder wait for this one
+    # demodel: allow(no-blocking-io-under-lock) — single-flight build
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+        # demodel: allow(no-blocking-io-under-lock) — single-flight build
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        # demodel: allow(no-blocking-io-under-lock) — single-flight build
+        out.with_suffix(".log").write_text(res.stdout + res.stderr)
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        os.replace(tmp, out)
+    log.info("built %s", out.name)
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            # demodel: allow(no-blocking-io-under-lock) — one thread
+            # builds and loads; the others wait for the library
+            lib = ctypes.CDLL(str(build_library()))
+            fn = lib.demodel_flash_attention_fwd
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                           + [ctypes.c_longlong] * 12
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def _flash_cuda(q, k, v, kvb, offb, causal: bool, scale: float,
+                with_lse: bool):
+    """Launch the kernel on the current stream (no synchronise)."""
+    global launches
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head dim {_HEAD_DIMS}, got {D}")
+    if not (k.device == v.device == q.device):
+        raise ValueError("q, k and v must be on one device")
+    if H > 65535 or B > 65535:
+        raise ValueError(f"grid too large: B={B}, H={H}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if B == 0 or Sq == 0 or H == 0:
+        return out, lse
+    lib = _library()
+    win = torch.stack([kvb, offb])  # (2, B) int32
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.demodel_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None, win.data_ptr(),
+            B, Sq, Sk, H, G, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3],
+            float(scale), int(causal), _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: "
+                           f"cudaError {err}")
+    with _launch_lock:
+        launches += 1
+    return out, lse
+
+
+def flash_attention(q, k, v, kv_len=None, causal: bool = True, scale=None,
+                    causal_offset=None, return_lse: bool = False):
+    """Fused attention. q: (B, Sq, H, D); k/v: (B, Sk, G, D) with G | H.
+    Returns (B, Sq, H, D) in q's dtype (plus the per-row log-sum-exp,
+    (B, Sq, H) fp32, when ``return_lse``). k and v in another dtype than
+    q are promoted with q, as the JAX kernel reads every tile in fp32."""
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    if G == 0 or H % G != 0:
+        raise ValueError(f"q heads {H} not a multiple of kv heads {G}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if scale is None:
+        scale = D ** -0.5
+    kvb, offb = _windows(kv_len, causal_offset, B, Sq, Sk, q.device)
+    out_dtype = q.dtype
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    if q.device.type == "cpu":
+        out, lse = _flash_plain(q, k, v, kvb, offb, causal, scale)
+    else:
+        out, lse = _flash_cuda(q, k, v, kvb, offb, causal, scale, return_lse)
+    out = out.to(out_dtype)
+    return (out, lse) if return_lse else out

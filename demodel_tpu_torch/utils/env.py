@@ -1,0 +1,79 @@
+"""Degrade-not-crash env parsing (the serving knobs of
+``demodel_tpu.utils.env``, same names and defaults).
+
+A malformed value logs a warning and yields the default.
+"""
+
+from __future__ import annotations
+
+import os
+
+from demodel_tpu_torch.utils.logging import get_logger
+
+log = get_logger("env")
+
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("0", "false", "no", "off")
+
+
+def env_int(name: str, default: int, minimum: int | None = None) -> int:
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        val = int(raw)
+    except ValueError:
+        log.warning("%s=%r is not an integer; using default %d", name, raw,
+                    default)
+        return default
+    if minimum is not None and val < minimum:
+        log.warning("%s=%d below minimum %d; clamping", name, val, minimum)
+        return minimum
+    return val
+
+
+def flash_attn_env() -> bool | None:
+    """``DEMODEL_FLASH_ATTN``: the caller's explicit choice of the fused
+    attention kernel (1/true/yes/on) or the einsum path (0/false/no/off);
+    None when unset or unparseable — the default policy decides."""
+    raw = os.environ.get("DEMODEL_FLASH_ATTN", "").strip().lower()
+    if raw in _TRUE:
+        return True
+    if raw in _FALSE:
+        return False
+    return None
+
+
+def gen_block_tokens() -> int:
+    """``DEMODEL_GEN_BLOCK``: tokens per KV-cache block in the paged
+    generation pool (16, the vLLM default)."""
+    return env_int("DEMODEL_GEN_BLOCK", 16, minimum=1)
+
+
+def gen_kv_mb() -> int:
+    """``DEMODEL_GEN_KV_MB``: byte budget (MB) for the paged KV pool."""
+    return env_int("DEMODEL_GEN_KV_MB", 256, minimum=1)
+
+
+def gen_max_batch() -> int:
+    """``DEMODEL_GEN_MAX_BATCH``: running-sequence cap — one decode step
+    advances at most this many sequences together."""
+    return env_int("DEMODEL_GEN_MAX_BATCH", 8, minimum=1)
+
+
+def gen_queue_limit() -> int:
+    """``DEMODEL_GEN_QUEUE``: waiting-queue depth past which admission
+    answers 503 + Retry-After."""
+    return env_int("DEMODEL_GEN_QUEUE", 64, minimum=1)
+
+
+def gen_retry_after_s() -> int:
+    """``DEMODEL_GEN_RETRY_AFTER``: the Retry-After hint (seconds) a
+    queue-overflow 503 carries."""
+    return env_int("DEMODEL_GEN_RETRY_AFTER", 1, minimum=1)
+
+
+def gen_max_new_tokens() -> int:
+    """``DEMODEL_GEN_MAX_NEW``: per-request cap on generated tokens —
+    admission reserves KV blocks for the worst case (prompt + this cap)."""
+    return env_int("DEMODEL_GEN_MAX_NEW", 256, minimum=1)

@@ -1,0 +1,158 @@
+"""Port parity: ``demodel_tpu_torch.ops.flash_attention`` against the JAX
+package's reference attention and its Pallas kernel (interpret mode on
+the CPU, as tests/test_flash_attention.py runs it).
+
+Inputs come from a seeded numpy generator and go to both packages.
+Tolerances are the reference's own: 2e-5 in f32, 2e-2 in bf16. On CPU
+tensors the port's ``flash_attention`` runs the kernel's plain version,
+so these tests hold the function the CUDA kernel must compute; the
+kernel itself is held against that plain version on the card by
+``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from demodel_tpu_torch.ops import flash_attention as tfa
+from demodel_tpu_torch.ops.ring_attention import dense_attention
+
+jfa = importlib.import_module("demodel_tpu.ops.flash_attention")
+jring = importlib.import_module("demodel_tpu.ops.ring_attention")
+#: jit the JAX references: eager dispatch compiles every op per shape
+_jref = jax.jit(jfa.reference_attention_lse, static_argnums=(3,))
+_jdense = jax.jit(jring.dense_attention, static_argnums=(3,))
+
+torch.set_num_threads(1)
+
+F32_TOL = 2e-5
+BF16_TOL = 2e-2
+
+# name, B, Sq, Sk, H, G, D, causal, kv_len, causal_offset
+CASES = [
+    ("causal_square", 2, 40, 40, 4, 4, 16, True, None, None),
+    ("noncausal_tails", 2, 24, 70, 4, 4, 16, False, None, None),
+    ("gqa_ratio_4", 1, 33, 33, 8, 2, 16, True, None, None),
+    ("gqa_ratio_8", 1, 20, 20, 8, 1, 32, True, None, None),
+    ("decode_window", 1, 5, 72, 4, 4, 16, True, None, None),
+    ("per_batch_kv_len", 3, 4, 48, 4, 2, 16, True, [17, 48, 30], None),
+    ("kv_len_zero_row", 2, 6, 20, 4, 4, 16, True, [0, 13], None),
+    ("per_batch_offset", 2, 12, 16, 4, 4, 16, True, None, [-8, 3]),
+    ("sq_gt_kv_len", 1, 12, 16, 2, 2, 16, True, 4, None),
+    ("noncausal_kv_len", 2, 9, 30, 4, 2, 16, False, [11, 30], None),
+]
+IDS = [c[0] for c in CASES]
+
+
+def _inputs(B, Sq, Sk, H, G, D, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, G, D)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, G, D)).astype(np.float32)
+    return q, k, v
+
+
+def _arg(x, lib):
+    if x is None:
+        return None
+    a = np.asarray(x, np.int32)
+    return jnp.asarray(a) if lib == "jax" else torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_reference_lse_matches_jax(case):
+    _, B, Sq, Sk, H, G, D, causal, kv_len, off = case
+    q, k, v = _inputs(B, Sq, Sk, H, G, D, seed=1)
+    want, want_lse = _jref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, None,
+        _arg(kv_len, "jax"), _arg(off, "jax"))
+    got, got_lse = tfa.reference_attention_lse(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, kv_len=_arg(kv_len, "torch"),
+        causal_offset=_arg(off, "torch"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_flash_matches_jax_kernel(case):
+    """The port's flash_attention (plain version on CPU) against the
+    Pallas kernel in interpret mode — output and LSE, fully-masked rows
+    (zeros, NEG_INF) included."""
+    _, B, Sq, Sk, H, G, D, causal, kv_len, off = case
+    q, k, v = _inputs(B, Sq, Sk, H, G, D, seed=2)
+    want, want_lse = jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        kv_len=_arg(kv_len, "jax"), causal=causal,
+        causal_offset=_arg(off, "jax"), block_q=32, block_k=32,
+        return_lse=True)
+    before = tfa.launches
+    got, got_lse = tfa.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        kv_len=_arg(kv_len, "torch"), causal=causal,
+        causal_offset=_arg(off, "torch"), return_lse=True)
+    assert tfa.launches == before  # CPU tensors never reach the kernel
+    assert got.dtype == torch.float32 and got_lse.shape == (B, Sq, H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal,kv_len", [(True, None), (False, [9, 30])],
+                         ids=["causal", "noncausal_kv_len"])
+def test_flash_bf16_matches_jax_kernel(causal, kv_len):
+    """bf16 in, fp32 accumulate, bf16 out — against the interpreted
+    kernel on the same bf16 inputs."""
+    q, k, v = _inputs(2, 24, 30, 4, 2, 32, seed=3)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = jfa.flash_attention(jq, jk, jv, kv_len=_arg(kv_len, "jax"),
+                               causal=causal, block_q=16, block_k=16)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = tfa.flash_attention(tq, tk, tv, kv_len=_arg(kv_len, "torch"),
+                              causal=causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("G", [4, 2, 1], ids=["mha", "gqa2", "gqa4"])
+def test_dense_attention_matches_jax(G):
+    q, k, v = _inputs(2, 19, 19, 4, G, 16, seed=4)
+    want = _jdense(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True)
+    got = dense_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_flash_mixed_dtypes_promote_like_jax():
+    """bf16 queries over an fp32 cache: the JAX kernel reads every tile
+    in fp32 and returns q's dtype; the port promotes the same way."""
+    q, k, v = _inputs(1, 8, 20, 4, 4, 16, seed=5)
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    got = tfa.flash_attention(tq, torch.from_numpy(k), torch.from_numpy(v),
+                              kv_len=13)
+    want = jfa.flash_attention(jnp.asarray(q, jnp.bfloat16), jnp.asarray(k),
+                               jnp.asarray(v), kv_len=13, block_q=8,
+                               block_k=8)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_flash_rejects_bad_head_ratio():
+    q, k, v = _inputs(1, 4, 4, 6, 4, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v))

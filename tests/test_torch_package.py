@@ -1,0 +1,168 @@
+"""Package rules of the port (``demodel_tpu_torch``), checked on the CPU.
+
+- It imports neither jax nor the JAX package: not at run time (a fresh
+  interpreter imports every module and inspects ``sys.modules``) and not
+  in its source (an AST scan of every module and of ``chip_smoke.py``).
+  The port's own name starts with ``demodel_tpu``, so both checks match
+  whole module names.
+- Entry points default to CUDA and raise where there is none; nothing
+  quietly drops to the CPU.
+- The attention wrapper never reaches the kernel for CPU tensors, and
+  the kernel builder raises without nvcc instead of falling back.
+"""
+
+from __future__ import annotations
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from demodel_tpu_torch import serve
+from demodel_tpu_torch.models import convert, hf_loader, llama
+from demodel_tpu_torch.ops import flash_attention as tfa
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "demodel_tpu_torch"
+MODULES = sorted(p for p in PKG.rglob("*.py"))
+FORBIDDEN = ("jax", "jaxlib", "demodel_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _module_name(path: Path) -> str:
+    rel = path.relative_to(REPO).with_suffix("")
+    parts = list(rel.parts)
+    if parts[-1] == "__init__":
+        parts.pop()
+    return ".".join(parts)
+
+
+def test_forbidden_names_match_whole_modules():
+    assert _forbidden("jax.numpy") and _forbidden("demodel_tpu.serve")
+    assert not _forbidden("demodel_tpu_torch.serve")
+    assert not _forbidden("jaxtyping")
+
+
+def test_runtime_imports_leave_jax_unloaded():
+    """Every port module imported in a fresh interpreter: no jax, no
+    ``demodel_tpu`` / ``demodel_tpu.*`` in ``sys.modules``."""
+    names = [_module_name(p) for p in MODULES]
+    code = (
+        "import importlib, json, sys\n"
+        f"for n in {names!r}:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if any(\n"
+        "    m == f or m.startswith(f + '.')\n"
+        f"    for f in {FORBIDDEN!r}))\n"
+        "print(json.dumps(bad))\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            names.append(str(node.args[0].value))
+    return names
+
+
+@pytest.mark.parametrize(
+    "path", MODULES + [REPO / "chip_smoke.py"],
+    ids=[str(p.relative_to(REPO)) for p in MODULES] + ["chip_smoke.py"])
+def test_source_imports_no_jax(path):
+    bad = [n for n in _imports(path) if _forbidden(n)]
+    assert bad == [], f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("entry", [
+    "init_params", "init_cache", "params_from_numpy", "load_llama_params",
+    "GenEngine", "boot"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves")
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    calls = {
+        "init_params": lambda: llama.init_params(None, cfg),
+        "init_cache": lambda: llama.init_cache(cfg, 1, 4),
+        "params_from_numpy": lambda: convert.params_from_numpy(
+            {"embed": np.zeros((2, 2), np.float32)}, cfg),
+        "load_llama_params": lambda: hf_loader.load_llama_params({}, cfg),
+        "GenEngine": lambda: serve.GenEngine(params, cfg),
+        "boot": lambda: serve.boot(params, cfg),
+    }
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        calls[entry]()
+    assert serve.current() is None
+
+
+def test_wrapper_never_reaches_kernel_for_cpu_tensors(monkeypatch):
+    def no_kernel():
+        raise AssertionError("kernel library loaded for CPU tensors")
+
+    monkeypatch.setattr(tfa, "_library", no_kernel)
+    before = tfa.launches
+    q = torch.randn(1, 5, 2, 64, generator=torch.Generator().manual_seed(0))
+    out, lse = tfa.flash_attention(q, q, q, return_lse=True)
+    assert out.shape == q.shape and lse.shape == (1, 5, 2)
+    assert tfa.launches == before
+
+
+def test_wrapper_raises_on_other_devices():
+    q = torch.empty(1, 4, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa.flash_attention(q, q, q)
+
+
+def test_kernel_source_and_flags():
+    (src,) = tfa.SOURCES
+    text = src.read_text()
+    assert 'extern "C" int demodel_flash_attention_fwd(' in text
+    assert "demodel_tpu/ops/flash_attention.py" in text  # what it replaces
+    assert "arch=compute_90a,code=sm_90a" in tfa.NVCC_FLAGS
+    assert tfa.BUILD_DIR.relative_to(REPO).parts[0] == "build"
+
+
+def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(tfa, "CUDA_DEFAULT", tmp_path)
+    monkeypatch.setattr(tfa, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tfa.build_library()
+    assert not (tmp_path / "build").exists()
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory that holds nothing else of the repo: non-zero exit
+    and no result line."""
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
