@@ -10,19 +10,30 @@ Phases, each printing one line:
 
 1. device — the card, its power limit, and TF32 switched off for both
    matmul and cuDNN;
-2. build — nvcc builds the flash-attention kernel (csrc/) for sm_90a;
+2. build — nvcc builds the flash-attention and dequant kernels (csrc/)
+   for sm_90a, one nvcc per source, started together;
 3. kernel — the kernel against its plain PyTorch version on the card at
    the Llama-2-7B prefill shapes and every masking case (GQA, ragged
    decode, a kv_len-0 row, Sq > kv_len, non-causal, f32, return_lse),
    with kernel / plain / SDPA times and the roofline bound;
-4. slice — a Llama-2-7B-width model (32 layers, bf16, seeded random
+4. dequant — each GGUF dequant kernel (csrc/dequant.cu: Q8_0, Q4_0 and
+   the five K-quants) against its plain PyTorch version on the card at
+   the ffn_gate shape 11008×4096 in bf16 and f32, and at 1, 3, 257 and 0
+   blocks; kernel and plain times beside the bytes bound;
+5. slice — a Llama-2-7B-width model (32 layers, bf16, seeded random
    weights) served by the continuous-batching engine: prefill logits
    kernel vs plain path, five requests (staggered joins, HTTP sync and
    NDJSON stream among them) whose first tokens must equal the argmax of
    their kernel-path prefill logits, kernel launches counted over the
    run, the KV pool back to zero blocks;
-5. parity — full width, 2 layers, fp32: engine tokens equal the port's
-   sequential ``generate``.
+6. parity — full width, 2 layers, fp32: engine tokens equal the port's
+   sequential ``generate``;
+7. gguf — cold boot of Llama-2-7B-width GGUF files (seeded random valid
+   blocks in a host buffer) through ``deliver_gguf`` on the default CUDA
+   mesh: a 32-layer Q4_K_M file, then Q4_0, Q8_0, Q2_K, Q3_K and Q5_K
+   at 2 layers; launches per format counted over each delivery, every
+   value finite, layer 0, the last layer, token_embd and output held
+   against the plain version, one tensor against ``REF_DEQUANT``.
 
 Then the card line from nvidia-smi, a JSON line with the kernels, and
 last ``{"ok": true, "device": {...}}``. Any failed phase raises (exit
@@ -104,15 +115,26 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Build every kernel library at once: one nvcc per source, started
+    together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from demodel_tpu_torch.ops import dequant as dq
     from demodel_tpu_torch.ops import flash_attention as fa
 
+    mods = {"flash_attention": fa, "dequant": dq}
     t0 = time.perf_counter()
-    lib = fa.build_library()
-    fa._library()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        futs = {k: pool.submit(m.build_library) for k, m in mods.items()}
+        libs = {k: f.result() for k, f in futs.items()}
+    for m in mods.values():
+        m._library()
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
-    _say("build", seconds=round(secs, 3), library=lib.name, ptxas=ptxas)
+    ptxas = {k: [ln.strip() for ln in lib.with_suffix(".log").read_text()
+                 .splitlines() if "registers" in ln or "spill" in ln]
+             for k, lib in libs.items()}
+    _say("build", seconds=round(secs, 3),
+         libraries={k: lib.name for k, lib in libs.items()}, ptxas=ptxas)
 
 
 # --------------------------------------------------------------- phase 3
@@ -399,6 +421,386 @@ def phase_parity() -> None:
          requests=len(prompts), tokens_equal=True)
 
 
+# ------------------------------------------------------- dequant, gguf
+
+#: the Llama-2-7B ffn_gate shape, where each dequant kernel is timed
+GATE_SHAPE = (11008, 4096)
+#: block counts held besides it: one block, an odd few, one past 256
+SMALL_BLOCKS = (1, 3, 257, 0)
+#: K-quant kernel vs plain version, max abs error relative to max|ref|:
+#: f32 summation-free math leaves only the scale products' rounding (the
+#: kernel is built without FMA contraction, so it is exact in practice);
+#: bf16 output is one bf16 ulp. Q8_0 and Q4_0 must match bit for bit.
+KQ_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+DEQUANT_FORMATS = ("q8_0", "q4_0", "q2_k", "q3_k", "q4_k", "q5_k", "q6_k")
+#: where each kernel's TPU counterpart is launched
+DEQUANT_REPLACES = {"q8_0": "demodel_tpu/ops/dequant.py:95",
+                    "q4_0": "demodel_tpu/ops/dequant.py:140",
+                    "k_quant": "demodel_tpu/ops/dequant.py:338"}
+#: f16 scale fields of each block: (byte offset, magnitude). They are set
+#: to values in [mag/2, mag) so every output stays O(1); every other bit
+#: pattern of a block is valid (tests/test_dequant.py relies on the same)
+SCALE_FIELDS = {
+    "q8_0": ((0, 1 / 127),),
+    "q4_0": ((0, 1 / 8),),
+    "q2_k": ((80, 1 / 45), (82, 1 / 15)),
+    "q3_k": ((108, 1 / 128),),
+    "q4_k": ((0, 1 / 945), (2, 1 / 63)),
+    "q5_k": ((0, 1 / 1953), (2, 1 / 63)),
+    "q6_k": ((208, 1 / 4096),),
+}
+#: Llama-2-7B widths of the GGUF files
+VOCAB, HIDDEN, INTER = 32000, 4096, 11008
+
+
+def _ggml_type(fmt: str) -> int:
+    from demodel_tpu_torch.formats import gguf
+
+    return getattr(gguf, f"GGML_{fmt.upper()}")
+
+
+def _random_blocks(out, fmt: str, rng) -> None:
+    """Fill ``out`` ((nb, bytes per block) uint8, contiguous) with random
+    valid blocks of ``fmt``."""
+    import numpy as np
+
+    flat = out.reshape(-1)
+    n8 = flat.size // 8 * 8
+    flat[:n8].view(np.uint64)[:] = rng.bit_generator.random_raw(n8 // 8)
+    flat[n8:] = rng.integers(0, 256, flat.size - n8, dtype=np.uint8)
+    nb = out.shape[0]
+    for off, mag in SCALE_FIELDS[fmt]:
+        d = (rng.uniform(0.5, 1.0, nb) * mag).astype(np.float16)
+        out[:, off:off + 2] = d.view(np.uint8).reshape(nb, 2)
+
+
+def _parts(fmt: str, nb: int, rng):
+    """Seeded random valid blocks of ``fmt``, split into parts on the
+    card, with their packed size in bytes."""
+    import numpy as np
+
+    from demodel_tpu_torch.formats import gguf
+    from demodel_tpu_torch.ops import dequant as dq
+
+    t = _ggml_type(fmt)
+    blk, bpb = gguf._BLOCK_GEOM[t]
+    raw = np.empty((nb, bpb), np.uint8)
+    _random_blocks(raw, fmt, rng)
+    spec = gguf.GGUFTensor("t", t, (nb * blk,), 0, raw.nbytes)
+    return [dq.to_device(p, "cuda")
+            for p in gguf.decode_raw(spec, raw.reshape(-1))], raw.nbytes
+
+
+def _plain(fmt: str):
+    from demodel_tpu_torch.ops import dequant as dq
+
+    return getattr(dq, f"_{fmt}_math")
+
+
+def _held(fmt: str, got, want, dtype: str) -> float:
+    """Max abs error of kernel output ``got`` against the plain version's
+    ``want``; raises past the limit."""
+    import torch
+
+    err = (got.float() - want.float().reshape(got.shape)).abs().max().item() \
+        if got.numel() else 0.0
+    if fmt in ("q8_0", "q4_0"):
+        ok = torch.equal(got, want.reshape(got.shape))
+    else:
+        scale = want.float().abs().max().item() if want.numel() else 0.0
+        ok = err <= KQ_TOL[dtype] * scale
+    if not (ok and bool(torch.isfinite(got.float()).all())):
+        raise AssertionError(f"dequant {fmt} {dtype}: kernel vs plain max "
+                             f"abs err {err} over {got.numel()} values")
+    return err
+
+
+def _dequant_case(fmt: str, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from demodel_tpu_torch.ops import dequant as dq
+
+    fn = dq._FNS[_ggml_type(fmt)]
+    plain = _plain(fmt)
+    rng = np.random.default_rng(seed)
+    per_block = 32 if fmt in ("q8_0", "q4_0") else 256
+    nb = GATE_SHAPE[0] * GATE_SHAPE[1] // per_block
+    parts, qbytes = _parts(fmt, nb, rng)
+    errs = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        errs[dtype] = _held(fmt, fn(*parts, dt), plain(*parts, dt), dtype)
+    for n in SMALL_BLOCKS:
+        small, _ = _parts(fmt, n, rng)
+        before = dq.launches[fmt]
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            got = fn(*small, dt)
+            if got.shape != (n * per_block,):
+                raise AssertionError(f"dequant {fmt}: {n} blocks gave "
+                                     f"{tuple(got.shape)}")
+            _held(fmt, got, plain(*small, dt) if n else got, dtype)
+        if n == 0 and dq.launches[fmt] != before:
+            raise AssertionError(f"dequant {fmt}: launched for 0 blocks")
+    torch.cuda.synchronize()
+    ms = _time_ms(lambda: fn(*parts, torch.bfloat16))
+    plain_ms = _time_ms(lambda: plain(*parts, torch.bfloat16))
+    nbytes = qbytes + nb * per_block * 2  # quantized in + bf16 out
+    return {"format": fmt, "shape": list(GATE_SHAPE), "dtype": "bfloat16",
+            "max_abs_err": errs["bfloat16"], "max_abs_err_f32":
+            errs["float32"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "library_ms": None, "quantized_bytes": qbytes}
+
+
+def phase_dequant() -> dict[str, dict]:
+    rows = {fmt: _dequant_case(fmt, seed=10 + i)
+            for i, fmt in enumerate(DEQUANT_FORMATS)}
+    for r in rows.values():
+        _say("dequant", **r)
+    return rows
+
+
+def _llama_tensors(n_layers: int) -> list[tuple[str, tuple[int, ...], int]]:
+    """(name, numpy shape, layer or -1) of a Llama-2-7B GGUF, llama.cpp's
+    names in llama.cpp's order."""
+    out = [("token_embd.weight", (VOCAB, HIDDEN), -1)]
+    for i in range(n_layers):
+        out += [(f"blk.{i}.attn_norm.weight", (HIDDEN,), i),
+                (f"blk.{i}.attn_q.weight", (HIDDEN, HIDDEN), i),
+                (f"blk.{i}.attn_k.weight", (HIDDEN, HIDDEN), i),
+                (f"blk.{i}.attn_v.weight", (HIDDEN, HIDDEN), i),
+                (f"blk.{i}.attn_output.weight", (HIDDEN, HIDDEN), i),
+                (f"blk.{i}.ffn_norm.weight", (HIDDEN,), i),
+                (f"blk.{i}.ffn_gate.weight", (INTER, HIDDEN), i),
+                (f"blk.{i}.ffn_up.weight", (INTER, HIDDEN), i),
+                (f"blk.{i}.ffn_down.weight", (HIDDEN, INTER), i)]
+    return out + [("output_norm.weight", (HIDDEN,), -1),
+                  ("output.weight", (VOCAB, HIDDEN), -1)]
+
+
+def _file_format(kind: str, name: str, shape, layer: int,
+                 n_layers: int) -> str:
+    """The format of one tensor: norms are f32; Q4_K_M follows
+    llama.cpp's ``use_more_bits`` rule (attn_v and ffn_down in Q6_K for
+    the first and last eighth of the layers and every third between);
+    the single-format files keep ``output`` in Q6_K (Q8_0 in the Q8_0
+    file)."""
+    if len(shape) == 1:
+        return "f32"
+    if name == "output.weight":
+        return "q8_0" if kind == "q8_0" else "q6_k"
+    if kind != "q4_k_m":
+        return kind
+    more_bits = (layer < n_layers // 8 or layer >= 7 * n_layers // 8
+                 or (layer - n_layers // 8) % 3 == 2)
+    if more_bits and (".attn_v." in name or ".ffn_down." in name):
+        return "q6_k"
+    return "q4_k"
+
+
+def _build_gguf(kind: str, n_layers: int, seed: int):
+    """A Llama-2-7B-width GGUF of seeded random valid blocks in a host
+    buffer: (buffer, [(name, shape, format)], quantized data bytes)."""
+    import numpy as np
+
+    from demodel_tpu_torch.formats import gguf
+
+    rng = np.random.default_rng(seed)
+    specs = [(name, shape, _file_format(kind, name, shape, layer, n_layers))
+             for name, shape, layer in _llama_tensors(n_layers)]
+    entries = [(n, s, _ggml_type(f)) for n, s, f in specs]
+    header, offsets = gguf.write_header(
+        entries, {"general.architecture": "llama",
+                  "llama.block_count": n_layers})
+    sizes = [gguf.tensor_nbytes(t, int(np.prod(s))) for _, s, t in entries]
+    data_len = offsets[-1] + sizes[-1] + (-sizes[-1]) % gguf.DEFAULT_ALIGNMENT
+    buf = bytearray(len(header) + data_len)
+    buf[:len(header)] = header
+    arr = np.frombuffer(buf, np.uint8)
+    for (_, shape, fmt), (_, _, t), off, size in zip(specs, entries,
+                                                     offsets, sizes):
+        body = arr[len(header) + off:len(header) + off + size]
+        if fmt == "f32":
+            body.view(np.float32)[:] = 1.0 + 0.1 * rng.standard_normal(
+                int(np.prod(shape)), dtype=np.float32)
+        else:
+            _random_blocks(body.reshape(-1, gguf._BLOCK_GEOM[t][1]), fmt,
+                           rng)
+    return buf, specs, data_len
+
+
+def _device_ms(run) -> dict[str, float]:
+    """Summed device time (ms) of the dequant kernels and of the
+    host-to-device copies during ``run()``, from the CUDA profiler's
+    trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = ("q8_0_kernel", "q4_0_kernel", "k_quant_kernel")
+    events = prof.key_averages()
+
+    def total(match) -> float:
+        return sum(e.device_time_total for e in events if match(e.key)) / 1e3
+
+    return {"kernel_ms_sum": total(lambda k: any(n in k for n in kernels)),
+            "h2d_ms_sum": total(lambda k: "HtoD" in k)}
+
+
+def _split_s() -> float:
+    """Seconds the sink has spent so far splitting blocks into dense
+    host parts (its ``sink.split`` span)."""
+    from demodel_tpu_torch.utils.metrics import HUB, labeled
+
+    h = HUB.histograms().get(labeled("stage_duration_seconds",
+                                     span="sink.split"))
+    return h["sum"] if h else 0.0
+
+
+def _gguf_file(kind: str, n_layers: int, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from demodel_tpu_torch.formats import gguf
+    from demodel_tpu_torch.ops import dequant as dq
+    from demodel_tpu_torch.sink import deliver_gguf
+
+    t0 = time.perf_counter()
+    buf, specs, data_len = _build_gguf(kind, n_layers, seed)
+    build_s = time.perf_counter() - t0
+    index = gguf.parse(buf)
+    want_launches = {f: 0 for f in DEQUANT_FORMATS}
+    for _, _, fmt in specs:
+        if fmt != "f32":
+            want_launches[fmt] += 1
+    want_values = sum(int(np.prod(s)) for _, s, _ in specs)
+
+    for fmt in dq.launches:
+        dq.launches[fmt] = 0
+    torch.cuda.synchronize()
+    split0 = _split_s()
+    t0 = time.perf_counter()
+    placed = deliver_gguf(None, f"llama-7b-{kind}", out_dtype=torch.bfloat16,
+                          buffer=buf)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    split_s = _split_s() - split0
+    launches = dict(dq.launches)
+
+    if launches != want_launches:
+        raise AssertionError(f"{kind}: launches {launches}, expected "
+                             f"{want_launches}")
+    values = sum(a.numel() for a in placed.arrays.values())
+    if (values != want_values or placed.total_bytes != 2 * want_values
+            or set(placed.arrays) != {n for n, _, _ in specs}):
+        raise AssertionError(f"{kind}: placed {values} values in "
+                             f"{placed.total_bytes} bytes, expected "
+                             f"{want_values}")
+    for name, shape, _ in specs:
+        a = placed.arrays[name]
+        if (tuple(a.shape) != shape or a.dtype != torch.bfloat16
+                or a.device.type != "cuda"
+                or not bool(torch.isfinite(a).all())):
+            raise AssertionError(f"{kind}: {name} placed as {a.dtype} "
+                                 f"{tuple(a.shape)} on {a.device}, or "
+                                 "not finite")
+
+    # layer 0, the last layer, token_embd and output against the plain
+    # version on the card, from the same parts
+    held, errs = 0, []
+    for name, shape, fmt in specs:
+        if not (name.startswith(("blk.0.", f"blk.{n_layers - 1}."))
+                or name in ("token_embd.weight", "output.weight")):
+            continue
+        t = index.tensors[name]
+        decoded = gguf.decode_raw(t, memoryview(buf)[t.start:t.start
+                                                     + t.nbytes])
+        if fmt == "f32":
+            want = dq.to_device(decoded, "cuda").to(torch.bfloat16)
+            ok = torch.equal(placed.arrays[name], want)
+            if not ok:
+                raise AssertionError(f"{kind}: {name} f32 → bf16 differs")
+        else:
+            parts = [dq.to_device(p, "cuda") for p in decoded]
+            want = _plain(fmt)(*parts, torch.bfloat16)
+            errs.append(_held(fmt, placed.arrays[name], want, "bfloat16"))
+        held += 1
+
+    # one tensor against the normative numpy decoder on the host
+    name = "blk.0.attn_q.weight"
+    t = index.tensors[name]
+    ref = gguf.REF_DEQUANT[t.ggml_type](*gguf.decode_raw(
+        t, memoryview(buf)[t.start:t.start + t.nbytes])).reshape(t.shape)
+    got = placed.arrays[name].float().cpu().numpy()
+    ref_err = float(np.abs(got - ref).max())
+    if not ref_err <= KQ_TOL["bfloat16"] * float(np.abs(ref).max()):
+        raise AssertionError(f"{kind}: {name} vs REF_DEQUANT max abs err "
+                             f"{ref_err}")
+    del placed, got
+    torch.cuda.empty_cache()
+
+    # summed kernel and copy times, from a second delivery under the
+    # profiler
+    dev_ms = _device_ms(lambda: deliver_gguf(
+        None, f"llama-7b-{kind}", out_dtype=torch.bfloat16, buffer=buf))
+    torch.cuda.empty_cache()
+    return {"file": kind, "layers": n_layers, "tensors": len(specs),
+            "gguf_bytes": len(buf), "quantized_data_bytes": data_len,
+            "build_s": round(build_s, 3), "deliver_s": wall_s,
+            "quantized_GBps": data_len / wall_s / 1e9,
+            **dev_ms, "host_split_s": split_s,
+            "launches": {k: v for k, v in launches.items() if v},
+            "values": values, "bf16_bytes": 2 * values,
+            "held_vs_plain": held, "max_abs_err_vs_plain": max(errs),
+            "ref_dequant_tensor": name, "ref_dequant_err": ref_err}
+
+
+#: the cold-boot files: the 32-layer Q4_K_M (llama.cpp's and Ollama's
+#: default), then each other format at 2 layers, full width
+GGUF_FILES = (("q4_k_m", 32), ("q4_0", 2), ("q8_0", 2), ("q2_k", 2),
+              ("q3_k", 2), ("q5_k", 2))
+
+
+def phase_gguf() -> dict[str, int]:
+    """Cold-boot each GGUF file through ``deliver_gguf`` on the default
+    (CUDA) mesh; returns the launches per format over the phase."""
+    total = {f: 0 for f in DEQUANT_FORMATS}
+    for i, (kind, n_layers) in enumerate(GGUF_FILES):
+        row = _gguf_file(kind, n_layers, seed=100 + i)
+        for fmt, n in row["launches"].items():
+            total[fmt] += n
+        _say("gguf", **row)
+    return total
+
+
+def _dequant_entries(rows: dict[str, dict], launches: dict[str, int]
+                     ) -> list[dict]:
+    """The kernels-line entries of the dequant kernels: q8_0, q4_0, and
+    k_quant with one sub-entry per format. k_quant's own numbers are its
+    Q4_K instantiation's (the format the Q4_K_M file runs most), its
+    launches the sum over the five formats."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape", "dtype")
+
+    def entry(name: str, fmt: str, replaces: str) -> dict:
+        return {"name": name, "route": "cuda",
+                "source": "demodel_tpu_torch/csrc/dequant.cu",
+                "replaces": replaces, "launches": launches[fmt],
+                **{k: rows[fmt][k] for k in keys}}
+
+    k_fmts = [f for f in DEQUANT_FORMATS if f.endswith("_k")]
+    k_quant = entry("k_quant", "q4_k", DEQUANT_REPLACES["k_quant"])
+    k_quant["launches"] = sum(launches[f] for f in k_fmts)
+    k_quant["formats"] = [entry(f, f, DEQUANT_REPLACES["k_quant"])
+                          for f in k_fmts]
+    return [entry("q8_0", "q8_0", DEQUANT_REPLACES["q8_0"]),
+            entry("q4_0", "q4_0", DEQUANT_REPLACES["q4_0"]), k_quant]
+
+
 def main() -> int:
     import torch
 
@@ -412,8 +814,10 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     k512 = phase_kernel()
+    dq_rows = phase_dequant()
     launches = phase_slice()
     phase_parity()
+    dq_launches = phase_gguf()
     _say("done", total_s=round(time.perf_counter() - t0, 3))
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -429,7 +833,7 @@ def main() -> int:
         "bound_by": k512["bound_by"],
         "library_ms": k512["library_ms"],
         "shape": k512["shape"],
-    }]}), flush=True)
+    }, *_dequant_entries(dq_rows, dq_launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,2 +1,4 @@
-"""Attention ops: the fused flash kernel (CUDA for Hopper) with its plain
-PyTorch version, the default policy, and the dense einsum attention."""
+"""Kernel ops of the port, each a hand-written CUDA kernel for Hopper
+(``csrc/``) beside its plain PyTorch version: fused flash attention with
+its default policy and the dense einsum attention, and GGUF
+dequantization. ``_build`` builds and loads the kernel libraries."""

@@ -26,20 +26,13 @@ card), so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from demodel_tpu_torch.utils.logging import get_logger
-
-log = get_logger("ops.flash_attention")
+from demodel_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 
@@ -48,19 +41,12 @@ NEG_INF = -1e30
 launches = 0
 _launch_lock = threading.Lock()
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (_CSRC / "flash_attention.cu",)
-#: build products live beside the checkout, in a directory .gitignore lists
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-#: conventional CUDA toolkit location, tried after PATH and CUDA_HOME
-CUDA_DEFAULT = Path("/usr/local/cuda")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+SOURCES = (_build.CSRC / "flash_attention.cu",)
+BUILD_DIR = _build.BUILD_DIR
+CUDA_DEFAULT = _build.CUDA_DEFAULT
+NVCC_FLAGS = _build.NVCC_FLAGS
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-_lib: ctypes.CDLL | None = None
-_lib_lock = threading.Lock()
 
 
 # ------------------------------------------------------------- reference
@@ -147,69 +133,28 @@ def _flash_plain(q, k, v, kvb, offb, causal: bool, scale: float):
 # ---------------------------------------------------------------- kernel
 
 
-def _find_nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc")
-                 if os.environ.get("CUDA_HOME") else None,
-                 str(CUDA_DEFAULT / "bin" / "nvcc")):
-        if cand and os.access(cand, os.X_OK):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, "
-        f"{CUDA_DEFAULT}/bin): the flash-attention kernel cannot be built")
-
-
 def build_library() -> Path:
-    """Compile ``csrc/flash_attention.cu`` for sm_90a into a shared
-    library named by a hash of the sources and flags, once per content.
-    The build writes a temporary name and renames it into place under an
-    exclusive file lock, so concurrent processes never load a half-written
-    library. Raises on a missing nvcc or a failed compile."""
-    nvcc = _find_nvcc()
-    digest = hashlib.sha256()
-    for src in SOURCES:
-        digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"libdemodel_flash_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # the file lock exists to make every other builder wait for this one
-    # demodel: allow(no-blocking-io-under-lock) — single-flight build
-    with open(BUILD_DIR / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if out.exists():
-            return out
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-        # demodel: allow(no-blocking-io-under-lock) — single-flight build
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        # demodel: allow(no-blocking-io-under-lock) — single-flight build
-        out.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-        os.replace(tmp, out)
-    log.info("built %s", out.name)
-    return out
+    """Compile ``csrc/flash_attention.cu`` for sm_90a (once per content;
+    see :mod:`demodel_tpu_torch.ops._build`). Raises on a missing nvcc or
+    a failed compile."""
+    return _build.build_library("demodel_flash", SOURCES, NVCC_FLAGS,
+                                BUILD_DIR, CUDA_DEFAULT)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.demodel_flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+_LIB = _build.LazyLibrary(build_library, _bind)
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            # demodel: allow(no-blocking-io-under-lock) — one thread
-            # builds and loads; the others wait for the library
-            lib = ctypes.CDLL(str(build_library()))
-            fn = lib.demodel_flash_attention_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                           + [ctypes.c_longlong] * 12
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    return _LIB.get()
 
 
 def _flash_cuda(q, k, v, kvb, offb, causal: bool, scale: float,

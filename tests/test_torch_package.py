@@ -7,8 +7,9 @@
   whole module names.
 - Entry points default to CUDA and raise where there is none; nothing
   quietly drops to the CPU.
-- The attention wrapper never reaches the kernel for CPU tensors, and
-  the kernel builder raises without nvcc instead of falling back.
+- The attention and dequant wrappers never reach their kernels for CPU
+  tensors, and the kernel builders raise without nvcc instead of
+  falling back.
 """
 
 from __future__ import annotations
@@ -26,8 +27,12 @@ import pytest
 import torch
 
 from demodel_tpu_torch import serve
+from demodel_tpu_torch import sink
+from demodel_tpu_torch.formats import gguf as tgguf
 from demodel_tpu_torch.models import convert, hf_loader, llama
+from demodel_tpu_torch.ops import dequant as tdq
 from demodel_tpu_torch.ops import flash_attention as tfa
+from demodel_tpu_torch.parallel import make_mesh
 
 torch.set_num_threads(1)
 
@@ -99,7 +104,8 @@ def test_source_imports_no_jax(path):
 
 @pytest.mark.parametrize("entry", [
     "init_params", "init_cache", "params_from_numpy", "load_llama_params",
-    "GenEngine", "boot"])
+    "GenEngine", "boot", "make_mesh", "deliver_gguf", "deliver_safetensors",
+    "dequant_gguf_tensor"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default resolves")
@@ -113,6 +119,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         "load_llama_params": lambda: hf_loader.load_llama_params({}, cfg),
         "GenEngine": lambda: serve.GenEngine(params, cfg),
         "boot": lambda: serve.boot(params, cfg),
+        "make_mesh": lambda: make_mesh(),
+        "deliver_gguf": lambda: sink.deliver_gguf(
+            None, "k", buffer=tgguf.serialize({"w": np.ones(4, np.float32)})),
+        "deliver_safetensors": lambda: sink.deliver_safetensors(
+            None, "k", buffer=b"\x02\x00\x00\x00\x00\x00\x00\x00{}"),
+        "dequant_gguf_tensor": lambda: tdq.dequant_gguf_tensor(
+            tgguf.GGUFTensor("w", tgguf.GGML_F32, (4,), 0, 16),
+            np.ones(4, np.float32)),
     }
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         calls[entry]()
@@ -166,3 +180,59 @@ def test_chip_smoke_fails_alone(tmp_path):
                          timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def _dequant_parts(nb: int, device: str = "cpu"):
+    """Parts of ``nb`` random blocks of every format, as decode_raw
+    splits them, on ``device``."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for t, fn in tdq._FNS.items():
+        blk, bpb = tgguf._BLOCK_GEOM[t]
+        raw = rng.integers(0, 256, (nb, bpb), dtype=np.uint8)
+        spec = tgguf.GGUFTensor("t", t, (nb * blk,), 0, raw.nbytes)
+        parts = tgguf.decode_raw(spec, raw.reshape(-1))
+        out[t] = [torch.from_numpy(np.array(p)).to(device) for p in parts]
+    return out
+
+
+def test_dequant_wrapper_never_loads_library_for_cpu_tensors(monkeypatch):
+    def no_kernel():
+        raise AssertionError("kernel library loaded for CPU tensors")
+
+    monkeypatch.setattr(tdq, "_library", no_kernel)
+    before = dict(tdq.launches)
+    for t, parts in _dequant_parts(3).items():
+        out = tdq._FNS[t](*parts)
+        assert out.dtype == torch.bfloat16
+        assert out.numel() == 3 * tgguf._BLOCK_GEOM[t][0]
+    assert tdq.launches == before
+
+
+def test_dequant_wrapper_raises_on_other_devices():
+    for t, parts in _dequant_parts(2, device="meta").items():
+        with pytest.raises(ValueError, match="unsupported device"):
+            tdq._FNS[t](*parts)
+
+
+def test_dequant_kernel_source_and_flags():
+    (src,) = tdq.SOURCES
+    text = src.read_text()
+    for fn in ("q8_0", "q4_0", "k_quant"):
+        assert f'extern "C" int demodel_dequant_{fn}(' in text
+    for replaced in ("_q8_0_kernel", "_q4_0_kernel", "_k_quant_call"):
+        assert replaced in text  # what it replaces
+    assert "demodel_tpu/ops/dequant.py" in text
+    assert "arch=compute_90a,code=sm_90a" in tdq.NVCC_FLAGS
+    assert "--fmad=false" in tdq.NVCC_FLAGS
+    assert tdq.BUILD_DIR.relative_to(REPO).parts[0] == "build"
+
+
+def test_dequant_builder_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(tdq, "CUDA_DEFAULT", tmp_path)
+    monkeypatch.setattr(tdq, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tdq.build_library()
+    assert not (tmp_path / "build").exists()
