@@ -11,11 +11,17 @@ Phases, each printing one line:
 1. device — the card, its power limit, and TF32 switched off for both
    matmul and cuDNN;
 2. build — nvcc builds the flash-attention and dequant kernels (csrc/)
-   for sm_90a, one nvcc per source, started together;
-3. kernel — the kernel against its plain PyTorch version on the card at
-   the Llama-2-7B prefill shapes and every masking case (GQA, ragged
-   decode, a kv_len-0 row, Sq > kv_len, non-causal, f32, return_lse),
-   with kernel / plain / SDPA times and the roofline bound;
+   for sm_90a, one nvcc per source, started together; ``cuobjdump
+   -sass`` counts the tensor-core (HGMMA) instructions of each bf16
+   flash instantiation, and none fails the phase;
+3. kernel — the flash kernels against their plain PyTorch version on the
+   card at every main-path prompt length (17, 64, 96, 128, 512), at
+   2048, and in every masking case (GQA, ragged decode, a kv_len-0 row,
+   Sq > kv_len, non-causal, no keys at all, D=64, strided and misaligned
+   k/v views, f32, return_lse), with the call time (CUDA events), the device time per
+   call (torch.profiler) of the kernel and of SDPA, the plain version's
+   time and the roofline bound; then a ``floors`` line that sets the
+   redesign's targets beside what was measured;
 4. dequant — each GGUF dequant kernel (csrc/dequant.cu: Q8_0, Q4_0 and
    the five K-quants) against its plain PyTorch version on the card at
    the ffn_gate shape 11008×4096 in bf16 and f32, and at 1, 3, 257 and 0
@@ -25,7 +31,8 @@ Phases, each printing one line:
    kernel vs plain path, five requests (staggered joins, HTTP sync and
    NDJSON stream among them) whose first tokens must equal the argmax of
    their kernel-path prefill logits, kernel launches counted over the
-   run, the KV pool back to zero blocks;
+   run (all on the tensor-core kernel), the KV pool back to zero
+   blocks;
 6. parity — full width, 2 layers, fp32: engine tokens equal the port's
    sequential ``generate``;
 7. gguf — cold boot of Llama-2-7B-width GGUF files (seeded random valid
@@ -69,6 +76,13 @@ NEG_INF = -1e30
 PROMPT_LENS = (17, 128, 64, 96)   # served together, staggered
 LONG_PROMPT = 512                 # served alone afterwards
 MAX_NEW = 16
+#: K1 targets of the tensor-core redesign, reported (not gated) beside
+#: the measurement: device ms at S=512 (a quarter of the CUDA-core
+#: kernel's 0.228 ms per call), device ms at S=2048 (15% of the
+#: operations bound), call time at S=17 over SDPA's
+K1_FLOORS = {"prefill_s512_device_ms": 0.057,
+             "prefill_s2048_device_ms": 0.231,
+             "prefill_s17_call_over_sdpa": 2.0}
 
 
 def _say(phase: str, **kw) -> None:
@@ -114,6 +128,35 @@ def phase_device() -> str:
     return smi
 
 
+def _hgmma_counts(lib) -> dict[str, int]:
+    """Tensor-core (HGMMA) instructions in each flash kernel function of
+    the built library, from ``cuobjdump -sass``."""
+    from pathlib import Path
+
+    from demodel_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc(_build.CUDA_DEFAULT)).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts: dict[str, int] = {}
+    fn = None
+    for ln in sass.splitlines():
+        s = ln.strip()
+        if s.startswith("Function :"):
+            fn = s.split(":", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in s:
+            counts[fn] += 1
+    named = {}
+    for fn, n in counts.items():
+        kind = ("wgmma_bf16" if "flash_fwd_wgmma" in fn else
+                "simt_f32" if "flash_fwd_kernel" in fn else None)
+        dim = "64" if "Li64E" in fn else "128" if "Li128E" in fn else "?"
+        if kind:
+            named[f"{kind}_d{dim}"] = n
+    return named
+
+
 def phase_build() -> None:
     """Build every kernel library at once: one nvcc per source, started
     together."""
@@ -133,25 +176,43 @@ def phase_build() -> None:
     ptxas = {k: [ln.strip() for ln in lib.with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln or "spill" in ln]
              for k, lib in libs.items()}
+    hgmma = _hgmma_counts(libs["flash_attention"])
     _say("build", seconds=round(secs, 3),
-         libraries={k: lib.name for k, lib in libs.items()}, ptxas=ptxas)
+         libraries={k: lib.name for k, lib in libs.items()}, ptxas=ptxas,
+         hgmma=hgmma)
+    tc = {k: n for k, n in hgmma.items() if k.startswith("wgmma_bf16")}
+    if sorted(tc) != ["wgmma_bf16_d128", "wgmma_bf16_d64"] or \
+            min(tc.values()) == 0:
+        raise AssertionError(f"bf16 flash kernels without tensor-core "
+                             f"instructions in their SASS: {hgmma}")
 
 
 # --------------------------------------------------------------- phase 3
 
 
 def _case(name, B, Sq, Sk, H, G, D, dtype, causal=True, kv_len=None,
-          offset=None, lse=False, seed=0):
+          offset=None, lse=False, view=None, seed=0):
+    """One K1 case. ``kv_len`` / ``offset``: an int goes by value, a list
+    as a per-batch tensor. ``view="strided"``: k is a column slice of
+    padded rows (a stride TMA cannot take, so the wrapper copies it) and
+    v a head slice of a wider buffer (read in place through its
+    strides)."""
     return dict(name=name, B=B, Sq=Sq, Sk=Sk, H=H, G=G, D=D, dtype=dtype,
                 causal=causal, kv_len=kv_len, offset=offset, lse=lse,
-                seed=seed)
+                view=view, seed=seed)
 
 
 CASES = [
     _case("prefill_s17", 1, 17, 17, 32, 32, 128, "bfloat16"),
+    _case("prefill_s64", 1, 64, 64, 32, 32, 128, "bfloat16"),
+    _case("prefill_s96", 1, 96, 96, 32, 32, 128, "bfloat16"),
     _case("prefill_s128", 1, 128, 128, 32, 32, 128, "bfloat16"),
     _case("prefill_s512", 1, 512, 512, 32, 32, 128, "bfloat16", lse=True),
+    _case("prefill_s2048", 1, 2048, 2048, 32, 32, 128, "bfloat16"),
     _case("gqa_h32_g8", 1, 256, 256, 32, 8, 128, "bfloat16"),
+    _case("gqa_d64", 2, 200, 200, 16, 4, 64, "bfloat16", lse=True),
+    _case("strided_kv", 2, 130, 150, 32, 8, 128, "bfloat16", kv_len=140,
+          lse=True, view="strided"),
     _case("ragged_decode", 4, 1, 256, 32, 32, 128, "bfloat16",
           kv_len=[1, 100, 256, 37], offset=[0, 99, 255, 36]),
     _case("kv_len_zero_row", 2, 16, 64, 32, 32, 128, "bfloat16",
@@ -159,10 +220,36 @@ CASES = [
     _case("sq_gt_kv_len", 1, 48, 64, 32, 32, 128, "bfloat16", kv_len=20,
           lse=True),
     _case("non_causal", 2, 100, 100, 32, 32, 128, "bfloat16", causal=False),
+    _case("no_keys", 1, 16, 0, 32, 32, 128, "bfloat16", lse=True),
     _case("f32_prefill", 1, 200, 200, 32, 32, 128, "float32", lse=True),
     _case("f32_d64_gqa_lse", 2, 70, 90, 8, 2, 64, "float32", causal=False,
           lse=True),
 ]
+#: device-time attribution: K1's own kernels, and everything else
+K1_KERNELS = ("flash_fwd_wgmma", "flash_fwd_kernel")
+
+
+def _window(x):
+    import torch
+
+    if isinstance(x, list):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+    return x
+
+
+def _per_call_device_ms(fn, groups, iters: int = 20) -> dict[str, float]:
+    """Device ms per call of ``fn`` by group, over ``iters`` calls after
+    a warm-up, from torch.profiler."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    return {k: v / iters for k, v in _device_ms(run, groups).items()}
 
 
 def _kernel_case(c) -> dict:
@@ -178,25 +265,32 @@ def _kernel_case(c) -> dict:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
-    q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, G, D), rnd(B, Sk, G, D)
-    kv = (None if c["kv_len"] is None else
-          torch.tensor(c["kv_len"], dtype=torch.int32, device="cuda"))
-    off = (None if c["offset"] is None else
-           torch.tensor(c["offset"], dtype=torch.int32, device="cuda"))
+    q = rnd(B, Sq, H, D)
+    if c["view"] == "strided":
+        k = rnd(B, Sk, G, D + 4)[..., :D]      # 2(D+4)-byte rows
+        v = rnd(B, Sk, 2 * G, D)[:, :, G:]      # every other head block
+    else:
+        k, v = rnd(B, Sk, G, D), rnd(B, Sk, G, D)
+    kv, off = _window(c["kv_len"]), _window(c["offset"])
     scale = D ** -0.5
+    plan = fa.launch_plan(q, k, v, kv, off)
 
-    def kernel():
+    def kernel(lse=True):
         return fa.flash_attention(q, k, v, kv_len=kv, causal=c["causal"],
-                                  causal_offset=off, return_lse=True)
+                                  causal_offset=off, return_lse=lse)
 
     kvb, offb = fa._windows(kv, off, B, Sq, Sk, q.device)
 
     def plain():
         return fa._flash_plain(q, k, v, kvb, offb, c["causal"], scale)
 
+    before = dict(fa.launches_by_kernel)
     got, got_lse = kernel()
     want, want_lse = plain()
     torch.cuda.synchronize()
+    if fa.launches_by_kernel[plan.kernel] != before[plan.kernel] + 1:
+        raise AssertionError(f"kernel case {c['name']}: no launch of "
+                             f"{plan.kernel}")
     err = (got.float() - want.float()).abs().max().item()
     tol = BF16_TOL if c["dtype"] == "bfloat16" else F32_TOL
     seen = want_lse > NEG_INF / 2
@@ -210,17 +304,27 @@ def _kernel_case(c) -> dict:
         raise AssertionError(f"kernel case {c['name']}: max_abs_err {err} "
                              f"lse_err {lse_err} masked_ok {masked_ok} "
                              f"(tol {tol})")
-    ms = _time_ms(lambda: fa.flash_attention(
-        q, k, v, kv_len=kv, causal=c["causal"], causal_offset=off,
-        return_lse=c["lse"]))
+
+    def call():
+        return kernel(c["lse"])
+
+    ms = _time_ms(call)
+    dev = _per_call_device_ms(call, {
+        "k1": lambda n: any(s in n for s in K1_KERNELS),
+        "other": lambda n: not any(s in n for s in K1_KERNELS)})
     plain_ms = _time_ms(plain)
-    lib_ms = None
+    lib_ms = lib_dev_ms = None
     if c["kv_len"] is None and c["offset"] is None and (
             not c["causal"] or Sq == Sk):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         gqa = {"enable_gqa": True} if G != H else {}
-        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=c["causal"], **gqa))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=c["causal"], **gqa)
+
+        lib_ms = _time_ms(sdpa)
+        lib_dev_ms = _per_call_device_ms(sdpa, {"all": lambda n: True})["all"]
     # work this run's data needs: 4·D flops per visible (query, key) pair
     # per head; bytes of q, k, v read once and o (+ lse) written once
     pairs = int(fa._mask(kvb, offb, Sq, Sk, c["causal"]).sum().item()) * H
@@ -232,17 +336,35 @@ def _kernel_case(c) -> dict:
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return {"case": c["name"], "shape": [B, Sq, Sk, H, G, D],
             "dtype": c["dtype"], "causal": c["causal"],
-            "max_abs_err": err, "lse_err": lse_err, "tol": tol,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "kernel": plan.kernel, "windows": plan.windows,
+            "copies": list(plan.copy), "max_abs_err": err,
+            "lse_err": lse_err, "tol": tol, "ms": ms,
+            "device_ms": dev["k1"], "other_device_ms": dev["other"],
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
 def phase_kernel() -> dict:
-    rows = [_kernel_case(c) for c in CASES]
-    for r in rows:
+    rows = {c["name"]: _kernel_case(c) for c in CASES}
+    for r in rows.values():
         _say("kernel", **r)
-    return next(r for r in rows if r["case"] == "prefill_s512")
+    s17, s512, s2048 = (rows[f"prefill_s{n}"] for n in (17, 512, 2048))
+    measured = {
+        "prefill_s512_device_ms": s512["device_ms"],
+        "prefill_s2048_device_ms": s2048["device_ms"],
+        "prefill_s17_call_over_sdpa": s17["ms"] / s17["library_ms"]}
+    _say("floors", targets=K1_FLOORS, measured=measured,
+         met={k: measured[k] <= v for k, v in K1_FLOORS.items()},
+         s2048_ops_bound_share=s2048["bound_ms"] / s2048["device_ms"],
+         k1_over_sdpa_device={n: rows[f"prefill_s{n}"]["device_ms"]
+                              / rows[f"prefill_s{n}"]["library_device_ms"]
+                              for n in (17, 64, 96, 128, 512, 2048)},
+         k1_over_sdpa_call={n: rows[f"prefill_s{n}"]["ms"]
+                            / rows[f"prefill_s{n}"]["library_ms"]
+                            for n in (17, 64, 96, 128, 512, 2048)})
+    return s512
 
 
 # --------------------------------------------------------------- phase 4
@@ -299,6 +421,8 @@ def phase_slice() -> int:
                              f"{rel_errs} > {LOGITS_REL_TOL}")
 
     fa.launches = 0  # count the main path's launches only
+    for name in fa.launches_by_kernel:
+        fa.launches_by_kernel[name] = 0
     decode_before = HUB.histograms().get(
         labeled("stage_duration_seconds", span="serve.decode-step"),
         {"sum": 0.0})["sum"]
@@ -358,6 +482,7 @@ def phase_slice() -> int:
         serve.install(None)
     serve_s = time.perf_counter() - t_serve
     launches = fa.launches
+    by_kernel = dict(fa.launches_by_kernel)
     decode_s = HUB.histograms()[labeled(
         "stage_duration_seconds", span="serve.decode-step")]["sum"] \
         - decode_before
@@ -371,6 +496,9 @@ def phase_slice() -> int:
     if launches != cfg.num_hidden_layers * len(prompts):
         raise AssertionError(f"flash kernel launches {launches}, expected "
                              f"{cfg.num_hidden_layers} per prefill")
+    if by_kernel["wgmma_bf16"] != launches:
+        raise AssertionError(f"bf16 prefill launches by kernel {by_kernel}: "
+                             "not all on the tensor-core kernel")
     in_use = engine.pool.describe()["in_use_blocks"]
     if in_use != 0:
         raise AssertionError(f"KV pool still holds {in_use} blocks")
@@ -378,7 +506,8 @@ def phase_slice() -> int:
          init_s=round(init_s, 3), requests=len(prompts),
          prompt_lens=[len(p) for p in prompts],
          logits_rel_err=rel_errs, logits_tol=LOGITS_REL_TOL,
-         flash_launches=launches, serve_s=round(serve_s, 3),
+         flash_launches=launches, flash_launches_by_kernel=by_kernel,
+         serve_s=round(serve_s, 3),
          decode_tokens=decode_tokens, decode_step_s=round(decode_s, 3),
          decode_tok_s=round(decode_tokens / decode_s, 3),
          kv_in_use_blocks=in_use)
@@ -631,24 +760,25 @@ def _build_gguf(kind: str, n_layers: int, seed: int):
     return buf, specs, data_len
 
 
-def _device_ms(run) -> dict[str, float]:
-    """Summed device time (ms) of the dequant kernels and of the
-    host-to-device copies during ``run()``, from the CUDA profiler's
-    trace."""
+def _device_ms(run, groups) -> dict[str, float]:
+    """Summed device time (ms) during ``run()`` of the device activities
+    (kernels, copies) whose names each group's predicate accepts, from
+    the CUDA profiler's trace."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    kernels = ("q8_0_kernel", "q4_0_kernel", "k_quant_kernel")
-    events = prof.key_averages()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return {k: sum(e.device_time_total for e in events if match(e.key)) / 1e3
+            for k, match in groups.items()}
 
-    def total(match) -> float:
-        return sum(e.device_time_total for e in events if match(e.key)) / 1e3
 
-    return {"kernel_ms_sum": total(lambda k: any(n in k for n in kernels)),
-            "h2d_ms_sum": total(lambda k: "HtoD" in k)}
+#: the dequant kernels' names, for their device-time sum
+DEQUANT_KERNELS = ("q8_0_kernel", "q4_0_kernel", "k_quant_kernel")
 
 
 def _split_s() -> float:
@@ -746,7 +876,9 @@ def _gguf_file(kind: str, n_layers: int, seed: int) -> dict:
     # summed kernel and copy times, from a second delivery under the
     # profiler
     dev_ms = _device_ms(lambda: deliver_gguf(
-        None, f"llama-7b-{kind}", out_dtype=torch.bfloat16, buffer=buf))
+        None, f"llama-7b-{kind}", out_dtype=torch.bfloat16, buffer=buf),
+        {"kernel_ms_sum": lambda k: any(n in k for n in DEQUANT_KERNELS),
+         "h2d_ms_sum": lambda k: "HtoD" in k})
     torch.cuda.empty_cache()
     return {"file": kind, "layers": n_layers, "tensors": len(specs),
             "gguf_bytes": len(buf), "quantized_data_bytes": data_len,
@@ -832,6 +964,8 @@ def main() -> int:
         "bound_ms": k512["bound_ms"],
         "bound_by": k512["bound_by"],
         "library_ms": k512["library_ms"],
+        "device_ms": k512["device_ms"],
+        "library_device_ms": k512["library_device_ms"],
         "shape": k512["shape"],
     }, *_dequant_entries(dq_rows, dq_launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {

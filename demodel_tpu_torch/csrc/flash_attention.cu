@@ -1,4 +1,5 @@
-// Fused flash-attention forward for NVIDIA Hopper (sm_90a).
+// Fused flash-attention forward for NVIDIA Hopper (sm_90a): two kernels,
+// chosen by the input dtype alone.
 //
 // Replaces the Pallas TPU kernel demodel_tpu/ops/flash_attention.py
 // `_flash_kernel` (launched by `_flash_forward`, public entry
@@ -10,36 +11,79 @@
 // What bounds it. At the Llama-2-7B prefill shapes (B=1, H=G=32, D=128,
 // S=512, causal, bf16) the work is 4*H*S*S*D/2 = 2.1 GFLOP over 16.8 MB of
 // q, k, v and o: 2.2 us of tensor-core time against 5.0 us of HBM time, so
-// the best possible kernel is bound by bytes. This first kernel computes in
-// fp32 on the CUDA cores (no tensor cores), so in practice it is bound by
-// its shared-memory reads and FMAs, far above that floor.
+// the best possible kernel is bound by bytes there; from S of about 2048 on,
+// a causal layer is bound by the tensor cores (34.7 us of operations at
+// S=2048).
 //
-// What the design does about it. HBM traffic stays O(S*D) per head: each
-// block reads its query tile once and streams K/V tiles through shared
-// memory once, never writing the S*S score tensor, and skips the tiles the
-// masks rule out (half the work when causal). (B, S, H, D) tensors are read
-// through their strides, so there are none of the TPU path's transposes or
-// padding copies; Sq and Sk tails are masked in the kernel.
+// bf16: `flash_fwd_wgmma<D>`, on the tensor cores. One block per 64 query
+// rows of one (batch row, head): one consumer warpgroup (4 warps) and one
+// producer warp. The producer loads the Q tile once and streams 64-key K and
+// V tiles through a 2-stage ring in shared memory with TMA (4-D tensor maps
+// over the (B, S, H, D) strides, 128-byte swizzle, out-of-bounds rows zero
+// filled), each tile signalled through an mbarrier, so the next tile's loads
+// overlap this tile's math. S = Q.K^T is `wgmma.m64n64k16` with both operands
+// in shared memory; q is not pre-scaled, the fp32 scores are scaled by
+// scale*log2(e) so the softmax uses exp2. The online softmax runs on the
+// accumulator in registers: a row's 16 values per thread reduce across the 4
+// threads that share the row (2 shuffles); the causal and kv_len masks are
+// applied only on tiles that cross the diagonal or the kv_len edge. O += P.V
+// is `wgmma` with P taken from registers (the S accumulator's fragment is the
+// A operand's layout once packed to bf16) and V read MN-major from the ring.
+// The epilogue divides by l, stores bf16 and the LSE, (m2 + log2 l) * ln 2.
+// Numerics: P is rounded to bf16 (against its row's running max) before
+// P.V, where the plain version keeps fp32; the JAX reference itself rounds
+// the probabilities to q's dtype. That is about 2^-9 relative per term,
+// well inside the bf16 tolerance of 2e-2.
 //
-// Layout of the work: one block of 8 warps per (q-tile of 32 rows, head,
-// batch row); each warp owns 4 query rows. For every 32-key tile, lane j
-// scores key j against the warp's 4 rows (q rows read as broadcast float4,
-// key rows padded to D+1 floats so the 32 lanes hit 32 banks), the running
-// max / denominator update with warp shuffles, and then each lane
-// accumulates output columns lane, lane+32, ... of P.V in fp32 registers.
-// The sequential minor grid axis of the TPU kernel becomes the loop over K
-// tiles inside the block.
+// float32: `flash_fwd_kernel<float, D>`, on the CUDA cores, because the JAX
+// kernel computes in fp32 and the f32 tolerances (1e-4) rule out bf16 or TF32
+// tensor cores. One block of 8 warps per (q-tile of 32 rows, head, batch
+// row); each warp owns 4 query rows. For every 32-key tile, lane j scores
+// key j against the warp's 4 rows (q rows read as broadcast float4, key rows
+// padded to D+1 floats so the 32 lanes hit 32 banks), the running max /
+// denominator update with warp shuffles, and then each lane accumulates
+// output columns lane, lane+32, ... of P.V in fp32 registers.
+//
+// Both kernels keep HBM traffic at O(S*D) per head (the S*S scores never
+// leave the SM), read (B, S, H, D) tensors through their strides (no
+// transposes or padding copies), and take the windows either by value (one
+// kv_len and causal_offset for the whole batch, the main path) or as an
+// int32 [2, B] tensor (ragged decode). One call is one launch.
 
+#include <cuda.h>  // CUtensorMap and the encoder's types; no -lcuda needed
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cmath>
+#include <cstdint>
+
+// The launch, as the wrapper's plan packs it: every field 8 bytes, no
+// padding. Strides are in elements; the last dim of every tensor is
+// contiguous.
+struct LaunchArgs {
+  long long q, k, v, o, lse, win;  // device pointers (lse, win may be 0)
+  long long kv_len, causal_offset; // when win == 0
+  long long B, Sq, Sk, H, G, D;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
+  long long causal;
+  long long kernel;  // 0: float32 CUDA cores, 1: bf16 tensor cores
+  long long grid_x, threads, smem;
+  long long device;
+  double scale;
+};
+
 namespace {
+
+constexpr float kNegInf = -1e30f;  // mask value and LSE sentinel
+
+// ---------------------------------------------------------------- float32
 
 constexpr int kBlockQ = 32;                      // query rows per block
 constexpr int kBlockK = 32;                      // keys per tile (= lanes)
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = kBlockQ / kWarps;   // 4
-constexpr float kNegInf = -1e30f;                // mask value and LSE sentinel
 
 struct Params {
   const void* q;
@@ -47,7 +91,9 @@ struct Params {
   const void* v;
   void* o;
   float* lse;        // [B, Sq, H] or nullptr
-  const int* win;    // [2, B]: kv_len per batch row, then causal_offset
+  const int* win;    // [2, B]: kv_len per batch row, then causal_offset;
+                     // nullptr: kv_len / causal_offset below for every row
+  int kv_len, causal_offset;
   int B, Sq, Sk, H, G;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -58,18 +104,11 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -106,8 +145,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int kv_len = p.win[b];
-  const int offset = p.win[p.B + b];
+  const int kv_len = p.win != nullptr ? p.win[b] : p.kv_len;
+  const int offset = p.win != nullptr ? p.win[p.B + b] : p.causal_offset;
 
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh;
@@ -221,60 +260,564 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
+// --------------------------------------------------------- bf16, wgmma
+
+constexpr int kTcRows = 64;     // query rows per block (one wgmma M)
+constexpr int kTcKeys = 64;     // keys per K/V tile
+constexpr int kStages = 2;      // K/V ring depth
+constexpr int kTcThreads = 160; // consumer warpgroup + producer warp
+constexpr int kBoxBytes = 64 * 64 * 2;  // one TMA box: 64 rows x 128 bytes
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+__host__ __device__ constexpr int tc_tile_bytes() {
+  return kTcKeys * D * 2;
+}
+// Q tile + the K and V rings + slack to align the base to 1024 bytes (the
+// 128-byte swizzle repeats every 8 rows of 128 bytes)
+template <int D>
+constexpr int tc_smem_bytes() {
+  return tc_tile_bytes<D>() * (1 + 2 * kStages) + 1024;
+}
+
+struct TcParams {
+  void* o;
+  float* lse;
+  const int* win;
+  int kv_len, causal_offset;
+  int B, Sq, Sk, H, G;
+  long long o_sb, o_ss, o_sh;
+  float scale_log2;  // softmax scale * log2(e)
+  int causal;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one TMA box of a 4-D map (d, head, row, batch) into shared memory,
+// completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma and its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D[64x64] (+)= A[64x16] . B[16x64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64x64] += A[64x16] . B[16x64], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64x128] += A[64x16] . B[16x128], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_m64n64k16_tb(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_m64n128k16_tb(o, a, db);
+}
+
+// Accumulator layout of a 64xN wgmma tile (fp32): thread t of the
+// warpgroup (warp w, lane l) holds rows r0 = 16w + l/4 and r0 + 8, columns
+// 8j + 2(l%4) + {0,1}; register 4j + 2i + c is (row r0 + 8i, column
+// 8j + 2(l%4) + c).
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const TcParams p) {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  constexpr int kBoxes = D / 64;  // 128-byte column boxes per row
+  constexpr uint32_t kTile = tc_tile_bytes<D>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;                      // [kBoxes][64 rows][128 B]
+  const uint32_t sk = base + kTile;              // kStages K tiles
+  const uint32_t sv = base + (1 + kStages) * kTile;  // kStages V tiles
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_k = smem_u32(&bars[1]);              // + 8 * stage
+  const uint32_t bar_v = smem_u32(&bars[1 + kStages]);
+  const uint32_t bar_free = smem_u32(&bars[1 + 2 * kStages]);
+
+  // (q tile, head, batch row) from the linear block index, the q tile the
+  // slowest and in descending order: the longest causal tiles start first
+  const int hb = p.H * p.B;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int qt = gridDim.x - 1 - lin / hb;
+  const int h = (lin % hb) % p.H;
+  const int b = (lin % hb) / p.H;
+  const int q0 = qt * kTcRows;
+  const int g = h / (p.H / p.G);  // GQA: the kv head this q head reads
+  const int kv_len = p.win != nullptr ? p.win[b] : p.kv_len;
+  const int offset = p.win != nullptr ? p.win[p.B + b] : p.causal_offset;
+
+  // keys any row of this block can see: the valid prefix, cut at the
+  // causal diagonal of the block's last real row (tiles past it skipped)
+  const int k_lim = min(kv_len, p.Sk);
+  int k_end = k_lim;
+  if (p.causal) k_end = min(k_end, min(q0 + kTcRows, p.Sq) + offset);
+  const int n_tiles = k_end > 0 ? (k_end + kTcKeys - 1) / kTcKeys : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_free + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer warp: one lane issues every load, then the warp is done
+    if (threadIdx.x == 128 && n_tiles > 0) {
+      mbar_expect_tx(bar_q, kTile);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x)
+        tma_load_4d(sq + x * kBoxBytes, &tq, 64 * x, h, q0, b, bar_q);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages)  // the consumer has released tile t - kStages
+          mbar_wait(bar_free + 8 * s, ((t / kStages) - 1) & 1);
+        mbar_expect_tx(bar_k + 8 * s, kTile);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x)
+          tma_load_4d(sk + s * kTile + x * kBoxBytes, &tk, 64 * x, g,
+                      t * kTcKeys, b, bar_k + 8 * s);
+        mbar_expect_tx(bar_v + 8 * s, kTile);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x)
+          tma_load_4d(sv + s * kTile + x * kBoxBytes, &tv, 64 * x, g,
+                      t * kTcKeys, b, bar_v + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);  // rows r0 and r0 + 8
+  const int cq = (lane & 3) * 2;                 // column pair in each 8
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's share of the sum
+
+  if (n_tiles > 0) mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const uint32_t phase = (t / kStages) & 1;
+    const int t0 = t * kTcKeys;
+
+    // S = Q . K^T over D in steps of 16: step kk reads 32 bytes at
+    // 32 * (kk % 4) into column box kk / 4 of Q and of K
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    mbar_wait(bar_k + 8 * s, phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_m64n64k16(sc, sw128_desc(sq + off, 16, 1024),
+                         sw128_desc(sk + s * kTile + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sc);
+
+    // masks only on the tiles that cross the kv_len edge or the diagonal
+    const bool edge = t0 + kTcKeys > k_lim;
+    const bool diag = p.causal && t0 + kTcKeys - 1 > q0 + offset;
+    if (edge || diag) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = t0 + 8 * j + cq + c;
+            const int row = q0 + r0 + 8 * i;
+            const bool ok =
+                key < k_lim && (!p.causal || key <= row + offset);
+            if (!ok) sc[4 * j + 2 * i + c] = -INFINITY;
+          }
+    }
+
+    // online softmax in base 2; masked scores give exactly 0
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx * p.scale_log2);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = fast_exp2(m[i] - m_use);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e =
+              fast_exp2(fmaf(sc[4 * j + 2 * i + c], p.scale_log2, -m_use));
+          sc[4 * j + 2 * i + c] = e;
+          sum += e;
+        }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * i] *= alpha;
+        o[4 * j + 2 * i + 1] *= alpha;
+      }
+    }
+
+    // P in bf16 as the A operand: keys 16kk..16kk+15 are accumulator
+    // columns 8(2kk) and 8(2kk+1), already in the A fragment's order
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    // O += P . V: V tile read MN-major, 16 keys (2 groups of 8 rows,
+    // 1024 bytes apart) per step; column boxes 8192 bytes apart
+    mbar_wait(bar_v + 8 * s, phase);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<D>(o, pa[kk],
+                  sw128_desc(sv + s * kTile + kk * 2048, kBoxBytes, 1024));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
+    mbar_arrive(bar_free + 8 * s);
+  }
+
+  // epilogue: the row sums over the 4 threads of a row, then out and LSE
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= p.Sq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
+                          row * p.o_ss + h * p.o_sh + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * i] * inv,
+                                o[4 * j + 2 * i + 1] * inv);
+    if (p.lse != nullptr && (lane & 3) == 0)
+      p.lse[(static_cast<long long>(b) * p.Sq + row) * p.H + h] =
+          l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : kNegInf;
+  }
+}
+
+// ------------------------------------------------------------------- host
+
+// cuTensorMapEncodeTiled, reached through the runtime so the library needs
+// no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+// 4-D bf16 map over a (B, S, heads, D) tensor, innermost first, boxes of
+// 64 d-values (128 bytes, swizzled) x 1 head x 64 rows x 1 batch row; rows
+// past S read as zeros. Strides in elements; the caller guarantees a
+// 16-byte aligned base and 16-byte multiple strides.
+bool encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int S,
+                int B, long long s_head, long long s_row, long long s_batch) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S > 0 ? S : 1),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_head) * 2,
+                                 static_cast<cuuint64_t>(s_row) * 2,
+                                 static_cast<cuuint64_t>(s_batch) * 2};
+  const cuuint32_t box[4] = {64, 1, kTcKeys, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// dynamic shared memory above 48 KB, set once per kernel and device
+template <int Kind, int D>
+cudaError_t allow_smem(const void* fn, int smem, int device) {
+  static std::atomic<unsigned long long> done{0};
+  const unsigned long long bit = 1ull << (device & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
+
+template <int D>
+cudaError_t launch_simt(const LaunchArgs& a, cudaStream_t stream) {
+  const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
+  if (a.smem != smem || a.threads != kWarps * 32) return cudaErrorInvalidValue;
+  cudaError_t err =
+      allow_smem<0, D>(reinterpret_cast<const void*>(flash_fwd_kernel<float, D>),
+                       smem, static_cast<int>(a.device));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, p.H, p.B);
-  flash_fwd_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(p);
+  Params p;
+  p.q = reinterpret_cast<const void*>(a.q);
+  p.k = reinterpret_cast<const void*>(a.k);
+  p.v = reinterpret_cast<const void*>(a.v);
+  p.o = reinterpret_cast<void*>(a.o);
+  p.lse = reinterpret_cast<float*>(a.lse);
+  p.win = reinterpret_cast<const int*>(a.win);
+  p.kv_len = static_cast<int>(a.kv_len);
+  p.causal_offset = static_cast<int>(a.causal_offset);
+  p.B = static_cast<int>(a.B);
+  p.Sq = static_cast<int>(a.Sq);
+  p.Sk = static_cast<int>(a.Sk);
+  p.H = static_cast<int>(a.H);
+  p.G = static_cast<int>(a.G);
+  p.q_sb = a.q_sb; p.q_ss = a.q_ss; p.q_sh = a.q_sh;
+  p.k_sb = a.k_sb; p.k_ss = a.k_ss; p.k_sh = a.k_sh;
+  p.v_sb = a.v_sb; p.v_ss = a.v_ss; p.v_sh = a.v_sh;
+  p.o_sb = a.o_sb; p.o_ss = a.o_ss; p.o_sh = a.o_sh;
+  p.scale = static_cast<float>(a.scale);
+  p.causal = static_cast<int>(a.causal);
+  const dim3 grid(static_cast<unsigned>(a.grid_x), p.H, p.B);
+  flash_fwd_kernel<float, D><<<grid, kWarps * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point, loaded with ctypes. Strides are in elements; the last
-// dim of every tensor is contiguous. dtype: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 = launched).
-extern "C" int demodel_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    const void* win, int B, int Sq, int Sk, int H, int G, int D,
-    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-    float scale, int causal, int dtype, void* stream) {
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.lse = static_cast<float*>(lse);
-  p.win = static_cast<const int*>(win);
+template <int D>
+cudaError_t launch_wgmma(const LaunchArgs& a, cudaStream_t stream) {
+  const int smem = tc_smem_bytes<D>();
+  if (a.smem != smem || a.threads != kTcThreads) return cudaErrorInvalidValue;
+  cudaError_t err =
+      allow_smem<1, D>(reinterpret_cast<const void*>(flash_fwd_wgmma<D>), smem,
+                       static_cast<int>(a.device));
+  if (err != cudaSuccess) return err;
+  const int B = static_cast<int>(a.B), Sq = static_cast<int>(a.Sq);
+  const int Sk = static_cast<int>(a.Sk), H = static_cast<int>(a.H);
+  const int G = static_cast<int>(a.G);
+  // with no keys no K/V tile is ever loaded, and an empty tensor has no
+  // address to map
+  CUtensorMap tq, tk = {}, tv = {};
+  if (!encode_map(&tq, reinterpret_cast<const void*>(a.q), D, H, Sq, B,
+                  a.q_sh, a.q_ss, a.q_sb) ||
+      (Sk > 0 &&
+       (!encode_map(&tk, reinterpret_cast<const void*>(a.k), D, G, Sk, B,
+                    a.k_sh, a.k_ss, a.k_sb) ||
+        !encode_map(&tv, reinterpret_cast<const void*>(a.v), D, G, Sk, B,
+                    a.v_sh, a.v_ss, a.v_sb))))
+    return cudaErrorInvalidValue;
+  TcParams p;
+  p.o = reinterpret_cast<void*>(a.o);
+  p.lse = reinterpret_cast<float*>(a.lse);
+  p.win = reinterpret_cast<const int*>(a.win);
+  p.kv_len = static_cast<int>(a.kv_len);
+  p.causal_offset = static_cast<int>(a.causal_offset);
   p.B = B;
   p.Sq = Sq;
   p.Sk = Sk;
   p.H = H;
   p.G = G;
-  p.q_sb = q_sb;
-  p.q_ss = q_ss;
-  p.q_sh = q_sh;
-  p.k_sb = k_sb;
-  p.k_ss = k_ss;
-  p.k_sh = k_sh;
-  p.v_sb = v_sb;
-  p.v_ss = v_ss;
-  p.v_sh = v_sh;
-  p.o_sb = o_sb;
-  p.o_ss = o_ss;
-  p.o_sh = o_sh;
-  p.scale = scale;
-  p.causal = causal;
+  p.o_sb = a.o_sb;
+  p.o_ss = a.o_ss;
+  p.o_sh = a.o_sh;
+  p.scale_log2 = static_cast<float>(a.scale * 1.4426950408889634);
+  p.causal = static_cast<int>(a.causal);
+  const dim3 grid(static_cast<unsigned>(a.grid_x), H, B);
+  flash_fwd_wgmma<D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point, loaded with ctypes: one launch on `stream` of the
+// kernel `args->kernel` names, on device `args->device`. Returns the
+// cudaError_t of the launch (0 = launched).
+extern "C" int demodel_flash_attention_fwd(const LaunchArgs* args,
+                                           void* stream) {
+  const LaunchArgs& a = *args;
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != a.device)
+    err = cudaSetDevice(static_cast<int>(a.device));
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch<float, 64>(p, s);
-  if (dtype == 0 && D == 128) return launch<float, 128>(p, s);
-  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(p, s);
-  if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(p, s);
+  if (a.kernel == 0 && a.D == 64) return launch_simt<64>(a, s);
+  if (a.kernel == 0 && a.D == 128) return launch_simt<128>(a, s);
+  if (a.kernel == 1 && a.D == 64) return launch_wgmma<64>(a, s);
+  if (a.kernel == 1 && a.D == 128) return launch_wgmma<128>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,4 @@
-"""Fused flash attention: a hand-written CUDA kernel for Hopper and its
+"""Fused flash attention: hand-written CUDA kernels for Hopper and their
 plain PyTorch version.
 
 Counterpart of ``demodel_tpu/ops/flash_attention.py``, same public
@@ -12,22 +12,32 @@ comes out as zeros with an LSE of :data:`NEG_INF`.
 
 Dispatch is by the tensors' device alone:
 
-- CPU tensors go to :func:`_flash_plain`, the kernel's plain version
+- CPU tensors go to :func:`_flash_plain`, the kernels' plain version
   (fp32 math, the same masking), which is what the tests compare with
   the JAX package;
-- CUDA tensors go to the kernel in ``csrc/flash_attention.cu``, built
+- CUDA tensors go to a kernel in ``csrc/flash_attention.cu``, built
   with nvcc at first use into ``build/torch_kernels/`` and loaded with
-  ctypes. A build or launch failure raises; nothing falls back.
+  ctypes: bf16 to the tensor-core kernel (``wgmma`` over a TMA ring),
+  float32 to the CUDA-core kernel. The dtype alone chooses; a build or
+  launch failure raises, and nothing falls back.
+
+:func:`launch_plan` makes every host-side choice of a launch (checks,
+kernel, windows by value or as a tensor, copies for TMA alignment, grid
+and shared memory) from the tensors' metadata alone, so the CPU tests
+reach it. A call with int windows is one launch and nothing else.
 
 :data:`launches` counts kernel launches (one per call that reaches the
-card), so a run can show that its main path went through the kernel.
+card) and :data:`launches_by_kernel` splits them by kernel, so a run can
+show that its main path went through the tensor-core kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,6 +49,8 @@ NEG_INF = -1e30
 #: kernel launches so far (CUDA tensors only); tests and the chip smoke
 #: reset it to 0 around the run they observe
 launches = 0
+#: the same launches by kernel (:data:`KERNELS`' names)
+launches_by_kernel = {"wgmma_bf16": 0, "simt_f32": 0}
 _launch_lock = threading.Lock()
 
 SOURCES = (_build.CSRC / "flash_attention.cu",)
@@ -46,7 +58,12 @@ BUILD_DIR = _build.BUILD_DIR
 CUDA_DEFAULT = _build.CUDA_DEFAULT
 NVCC_FLAGS = _build.NVCC_FLAGS
 _HEAD_DIMS = (64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: dtype → (kernel name, C enum, query rows per block, threads per block)
+KERNELS = {torch.float32: ("simt_f32", 0, 32, 256),
+           torch.bfloat16: ("wgmma_bf16", 1, 64, 160)}
+#: K/V ring depth of the tensor-core kernel
+STAGES = 2
+_INT32 = (-2 ** 31, 2 ** 31 - 1)
 
 
 # ------------------------------------------------------------- reference
@@ -143,10 +160,7 @@ def build_library() -> Path:
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.demodel_flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -157,43 +171,133 @@ def _library() -> ctypes.CDLL:
     return _LIB.get()
 
 
-def _flash_cuda(q, k, v, kvb, offb, causal: bool, scale: float,
-                with_lse: bool):
-    """Launch the kernel on the current stream (no synchronise)."""
-    global launches
+#: ``LaunchArgs`` of csrc/flash_attention.cu, field by field (int64 each,
+#: then the double ``scale``)
+ARG_FIELDS = ("q", "k", "v", "o", "lse", "win", "kv_len", "causal_offset",
+              "B", "Sq", "Sk", "H", "G", "D",
+              "q_sb", "q_ss", "q_sh", "k_sb", "k_ss", "k_sh",
+              "v_sb", "v_ss", "v_sh", "o_sb", "o_ss", "o_sh",
+              "causal", "kernel", "grid_x", "threads", "smem", "device",
+              "scale")
+_ARGS = struct.Struct(f"<{len(ARG_FIELDS) - 1}qd")
+
+
+class LaunchPlan(NamedTuple):
+    """Every host-side choice of one kernel launch."""
+
+    kernel: str                    # :data:`launches_by_kernel` key
+    code: int                      # the C side's kernel enum
+    grid: tuple[int, int, int]     # (q tiles, H, B)
+    threads: int
+    smem_bytes: int
+    #: "scalar": kv_len / causal_offset go by value; "vector": as an
+    #: int32 (2, B) tensor on the card
+    windows: str
+    kv_len: int                    # scalar windows only (else 0)
+    causal_offset: int
+    #: q, k, v: copy contiguous first (stride or alignment the kernel
+    #: cannot take)
+    copy: tuple[bool, bool, bool]
+
+
+def _as_int(x) -> int | None:
+    if isinstance(x, (int, np.integer)) and not isinstance(x, bool):
+        x = int(x)
+        if not _INT32[0] <= x <= _INT32[1]:
+            raise ValueError(f"window {x} out of int32 range")
+        return x
+    return None
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    """Can a TMA map read the bf16 ``t`` as it is: 16-byte aligned base,
+    unit last stride, the other strides multiples of 16 bytes (8
+    elements)."""
+    sb, ss, sh, sd = t.stride()
+    return sd == 1 and (sb | ss | sh) % 8 == 0 and t.data_ptr() % 16 == 0
+
+
+def smem_bytes(kernel: str, D: int) -> int:
+    """Dynamic shared memory of one block (mirrors csrc's
+    ``tc_smem_bytes`` and ``smem_floats``)."""
+    if kernel == "wgmma_bf16":
+        return 64 * D * 2 * (1 + 2 * STAGES) + 1024
+    return 4 * (32 * D + 32 * (D + 1) + 32 * D)
+
+
+def launch_plan(q, k, v, kv_len=None, causal_offset=None) -> LaunchPlan:
+    """The launch for q ``(B, Sq, H, D)`` and k/v ``(B, Sk, G, D)`` of one
+    dtype on one device, from their metadata alone (no launch, no device
+    work). Raises on what no kernel takes."""
     B, Sq, H, D = q.shape
     Sk, G = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+    if q.dtype not in KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash kernel takes float32 or bfloat16 q, k, v of "
+                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash kernel takes head dim {_HEAD_DIMS}, got {D}")
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must be on one device")
     if H > 65535 or B > 65535:
         raise ValueError(f"grid too large: B={B}, H={H}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    kernel, code, rows, threads = KERNELS[q.dtype]
+    if kernel == "wgmma_bf16":
+        copy = tuple(not _tma_ok(t) for t in (q, k, v))
+    else:
+        copy = tuple(t.stride(-1) != 1 for t in (q, k, v))
+    kv = Sk if kv_len is None else _as_int(kv_len)
+    off = None
+    if kv is not None:
+        off = kv - Sq if causal_offset is None else _as_int(causal_offset)
+    if kv is not None and off is not None:
+        windows, kv, off = "scalar", kv, off
+    else:
+        windows, kv, off = "vector", 0, 0
+    return LaunchPlan(kernel=kernel, code=code,
+                      grid=(-(-Sq // rows), H, B), threads=threads,
+                      smem_bytes=smem_bytes(kernel, D), windows=windows,
+                      kv_len=kv, causal_offset=off, copy=copy)
+
+
+def _flash_cuda(q, k, v, kv_len, causal_offset, causal: bool, scale: float,
+                with_lse: bool):
+    """Launch the planned kernel on the current stream (no synchronise):
+    one launch, plus the (2, B) window tensor only for vector windows."""
+    global launches
+    plan = launch_plan(q, k, v, kv_len, causal_offset)
+    if any(plan.copy):
+        q, k, v = (t.contiguous() if c else t
+                   for t, c in zip((q, k, v), plan.copy))
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if B == 0 or Sq == 0 or H == 0:
         return out, lse
     lib = _library()
-    win = torch.stack([kvb, offb])  # (2, B) int32
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.demodel_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None, win.data_ptr(),
-            B, Sq, Sk, H, G, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3],
-            float(scale), int(causal), _DTYPE_CODE[q.dtype], stream)
+    win = None
+    if plan.windows == "vector":
+        win = torch.stack(_windows(kv_len, causal_offset, B, Sq, Sk,
+                                   q.device))  # (2, B) int32
+    device = q.device.index if q.device.index is not None else \
+        torch.cuda.current_device()
+    args = _ARGS.pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        0 if lse is None else lse.data_ptr(),
+        0 if win is None else win.data_ptr(),
+        plan.kv_len, plan.causal_offset, B, Sq, Sk, H, G, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], int(causal), plan.code, plan.grid[0],
+        plan.threads, plan.smem_bytes, device, float(scale))
+    err = lib.demodel_flash_attention_fwd(
+        args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: "
                            f"cudaError {err}")
     with _launch_lock:
         launches += 1
+        launches_by_kernel[plan.kernel] += 1
     return out, lse
 
 
@@ -211,13 +315,17 @@ def flash_attention(q, k, v, kv_len=None, causal: bool = True, scale=None,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if scale is None:
         scale = D ** -0.5
-    kvb, offb = _windows(kv_len, causal_offset, B, Sq, Sk, q.device)
     out_dtype = q.dtype
-    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
-    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    if not (k.dtype == v.dtype == q.dtype):
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                 v.dtype)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
     if q.device.type == "cpu":
+        kvb, offb = _windows(kv_len, causal_offset, B, Sq, Sk, q.device)
         out, lse = _flash_plain(q, k, v, kvb, offb, causal, scale)
     else:
-        out, lse = _flash_cuda(q, k, v, kvb, offb, causal, scale, return_lse)
-    out = out.to(out_dtype)
+        out, lse = _flash_cuda(q, k, v, kv_len, causal_offset, causal, scale,
+                               return_lse)
+    if out.dtype != out_dtype:
+        out = out.to(out_dtype)
     return (out, lse) if return_lse else out

@@ -156,3 +156,141 @@ def test_flash_rejects_bad_head_ratio():
     with pytest.raises(ValueError, match="multiple"):
         tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                             torch.from_numpy(v))
+
+
+# ------------------------------------------------------------ launch plan
+#
+# The host-side choices of a launch, from the tensors' metadata alone:
+# no build and no card (the kernels are held against the plain version on
+# the card by chip_smoke.py).
+
+MAIN_PATH_LENS = (17, 64, 96, 128, 512)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("S", MAIN_PATH_LENS)
+def test_plan_main_path_bf16_goes_to_tensor_cores(S):
+    """Llama-2-7B prefill (B=1, H=G=32, D=128, kv_len=S as an int): the
+    tensor-core kernel, one block per 64 rows of one head, windows by
+    value, no copies."""
+    q = _bf16(1, S, 32, 128)
+    plan = tfa.launch_plan(q, q, q, kv_len=S)
+    assert plan.kernel == "wgmma_bf16"
+    assert plan.grid == (-(-S // 64), 32, 1)
+    assert plan.threads == 160
+    assert plan.smem_bytes == 64 * 128 * 2 * 5 + 1024   # Q + 2-stage K/V
+    assert (plan.windows, plan.kv_len, plan.causal_offset) == ("scalar", S,
+                                                               0)
+    assert plan.copy == (False, False, False)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_plan_f32_goes_to_cuda_cores(D):
+    q = torch.zeros(2, 70, 8, D)
+    k = torch.zeros(2, 90, 2, D)
+    plan = tfa.launch_plan(q, k, k)
+    assert plan.kernel == "simt_f32" and plan.threads == 256
+    assert plan.grid == (3, 8, 2)
+    assert plan.smem_bytes == 4 * (32 * D + 32 * (D + 1) + 32 * D)
+    # defaults: kv_len = Sk, causal_offset = kv_len - Sq
+    assert (plan.windows, plan.kv_len, plan.causal_offset) == ("scalar", 90,
+                                                               20)
+
+
+@pytest.mark.parametrize("kv_len,offset,windows", [
+    (40, None, "scalar"),
+    (np.int32(40), 3, "scalar"),
+    (None, -5, "scalar"),
+    (torch.tensor([40, 20], dtype=torch.int32), None, "vector"),
+    (40, torch.tensor([0, 3], dtype=torch.int32), "vector"),
+    ([40, 20], None, "vector"),
+], ids=["int", "numpy_int", "offset_only", "kv_tensor", "offset_tensor",
+        "kv_list"])
+def test_plan_windows_by_value_only_for_ints(kv_len, offset, windows):
+    q, k = _bf16(2, 24, 4, 64), _bf16(2, 48, 4, 64)
+    plan = tfa.launch_plan(q, k, k, kv_len, offset)
+    assert plan.windows == windows
+    if windows == "scalar":
+        kvb, offb = tfa._windows(kv_len, offset, 2, 24, 48, q.device)
+        assert (plan.kv_len, plan.causal_offset) == (int(kvb[0]),
+                                                     int(offb[0]))
+
+
+def test_plan_copies_only_what_tma_cannot_read():
+    """bf16 k/v views: a head slice of a wider buffer is read in place; a
+    row stride that is not a multiple of 16 bytes, or a base off 16-byte
+    alignment, is copied contiguous first."""
+    q = _bf16(2, 32, 8, 128)
+    wide = _bf16(2, 40, 4, 128)[:, :, 2:]          # strides 16-byte multiples
+    padded = _bf16(2, 40, 2, 132)[..., :128]       # 264-byte rows
+    shifted = _bf16(2 * 40 * 2 * 128 + 1)[1:].view(2, 40, 2, 128)
+    assert tfa.launch_plan(q, wide, wide).copy == (False, False, False)
+    assert tfa.launch_plan(q, padded, wide).copy == (False, True, False)
+    assert tfa.launch_plan(q, wide, shifted).copy == (False, False, True)
+    # the CUDA-core kernel reads any strides with a unit last one
+    fq = torch.zeros(2, 32, 8, 128)
+    fpadded = torch.zeros(2, 40, 2, 132)[..., :128]
+    ftransposed = torch.zeros(2, 40, 128, 2).transpose(2, 3)
+    assert tfa.launch_plan(fq, fpadded, fpadded).copy == (False, False,
+                                                          False)
+    assert tfa.launch_plan(fq, fpadded, ftransposed).copy == (False, False,
+                                                              True)
+
+
+@pytest.mark.parametrize("q,k,err", [
+    (_bf16(1, 8, 4, 32), _bf16(1, 8, 4, 32), ValueError),       # D=32
+    (torch.zeros(1, 8, 4, 64, dtype=torch.float16),
+     torch.zeros(1, 8, 4, 64, dtype=torch.float16), TypeError),
+    (_bf16(1, 8, 4, 64), torch.zeros(1, 8, 4, 64), TypeError),  # mixed
+    (_bf16(1, 8, 4, 64), torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16,
+                                     device="meta"), ValueError),
+], ids=["head_dim_32", "float16", "mixed_dtypes", "two_devices"])
+def test_plan_rejects_what_no_kernel_takes(q, k, err):
+    with pytest.raises(err):
+        tfa.launch_plan(q, k, k)
+
+
+def test_plan_rejects_windows_outside_int32():
+    q = _bf16(1, 8, 4, 64)
+    with pytest.raises(ValueError, match="int32"):
+        tfa.launch_plan(q, q, q, kv_len=2 ** 31)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_int_and_vector_windows_give_identical_plain_results(causal):
+    """The by-value form (what the main path passes) and the tensor form
+    of the same windows compute the same function."""
+    q, k, v = _inputs(3, 10, 40, 4, 2, 64, seed=6)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    by_value = tfa.flash_attention(tq, tk, tv, kv_len=33, causal=causal,
+                                   causal_offset=20, return_lse=True)
+    as_tensor = tfa.flash_attention(
+        tq, tk, tv, kv_len=torch.full((3,), 33, dtype=torch.int32),
+        causal=causal, causal_offset=torch.tensor([20, 20, 20]),
+        return_lse=True)
+    for a, b in zip(by_value, as_tensor):
+        assert torch.equal(a, b)
+
+
+def test_launch_args_match_the_c_struct():
+    """The packed launch arguments follow csrc's ``LaunchArgs`` field by
+    field: int64 each, then the double ``scale``, no padding."""
+    import re
+
+    (src,) = tfa.SOURCES
+    body = re.search(r"struct LaunchArgs \{(.*?)\};", src.read_text(),
+                     re.S).group(1)
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        decl = decl.strip()
+        if decl:
+            ctype, names = re.match(r"(long long|double)\s+(.*)", decl,
+                                    re.S).groups()
+            fields += [(ctype, n.strip()) for n in names.split(",")]
+    assert [n for _, n in fields] == list(tfa.ARG_FIELDS)
+    assert [c for c, _ in fields] == ["long long"] * (len(fields) - 1) + [
+        "double"]
+    assert tfa._ARGS.size == 8 * len(fields)
