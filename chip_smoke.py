@@ -9,19 +9,24 @@ CUDA toolkit:
 Phases, each printing one line:
 
 1. device — the card, its power limit, and TF32 switched off for both
-   matmul and cuDNN;
+   matmul and cuDNN; which compilers the machine has and whether
+   ``requests``, ``cryptography`` and ``jax`` are installed (recorded,
+   not used);
 2. build — nvcc builds the flash-attention and dequant kernels (csrc/)
-   for sm_90a, one nvcc per source, started together; ``cuobjdump
-   -sass`` counts the tensor-core (HGMMA) instructions of each bf16
-   flash instantiation, and none fails the phase;
+   for sm_90a and g++ the store library (native/), one compiler per
+   library, started together; ``cuobjdump -sass`` counts the
+   tensor-core (HGMMA) instructions of each bf16 and f16 flash
+   instantiation, and none fails the phase;
 3. kernel — the flash kernels against their plain PyTorch version on the
    card at every main-path prompt length (17, 64, 96, 128, 512), at
    2048, and in every masking case (GQA, ragged decode, a kv_len-0 row,
    Sq > kv_len, non-causal, no keys at all, D=64, strided and misaligned
-   k/v views, f32, return_lse), with the call time (CUDA events), the device time per
-   call (torch.profiler) of the kernel and of SDPA, the plain version's
-   time and the roofline bound; then a ``floors`` line that sets the
-   redesign's targets beside what was measured;
+   k/v views, f32, return_lse), f16 at 17, 512 and 2048, with the call
+   time (CUDA events), the device time per call (torch.profiler, or
+   the call time where every trace lost the work) of the kernel and of
+   SDPA, the plain version's time and the roofline bound;
+   then a ``floors`` line that sets the redesign's targets beside what
+   was measured;
 4. dequant — each GGUF dequant kernel (csrc/dequant.cu: Q8_0, Q4_0 and
    the five K-quants) against its plain PyTorch version on the card at
    the ffn_gate shape 11008×4096 in bf16 and f32, and at 1, 3, 257 and 0
@@ -40,7 +45,20 @@ Phases, each printing one line:
    mesh: a 32-layer Q4_K_M file, then Q4_0, Q8_0, Q2_K, Q3_K and Q5_K
    at 2 layers; launches per format counted over each delivery, every
    value finite, layer 0, the last layer, token_embd and output held
-   against the plain version, one tensor against ``REF_DEQUANT``.
+   against the plain version, one tensor against ``REF_DEQUANT``;
+8. pull — a cold pull from a HuggingFace-style registry served by this
+   script (stdlib ``http.server`` on 127.0.0.1: the Hub API, resolve
+   with its 302 to a CDN path, Range) of an F16 Llama-2-7B-width
+   checkpoint cut to 8 layers (3.76 GB of seeded random weights in two
+   safetensors shards) through ``serve.load_model`` into a store in a
+   temporary directory: every placed tensor equal to its source on the
+   card, three requests (prompts of 17, 128 and 512 tokens) over HTTP
+   with all K1 launches on the f16 tensor-core kernel, first tokens the
+   argmax of their kernel-path prefill logits, logits against the plain
+   path, the manifest record in the store; then ``LlamaConfig.tiny()``
+   (head dim 8, which no kernel takes): refused by K1's plan by default,
+   served on the einsum path with no K1 launch under the caller's
+   explicit ``DEMODEL_FLASH_ATTN=0``.
 
 Then the card line from nvidia-smi, a JSON line with the kernels, and
 last ``{"ok": true, "device": {...}}``. Any failed phase raises (exit
@@ -52,24 +70,28 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 #: kernel vs plain version, max abs error on outputs of O(1)-scaled inputs:
 #: bf16 output rounding (8-bit mantissa) and summation order; f32 summation
 #: order only
 BF16_TOL = 2e-2
 F32_TOL = 1e-4
+#: the same for f16 (10-bit mantissa: the bf16 bound holds with room)
+TOL = {"bfloat16": BF16_TOL, "float16": BF16_TOL, "float32": F32_TOL}
 #: 7B prefill logits, kernel path vs plain path (dense einsum attention in
 #: bf16), relative L2 error: bf16 scores in the plain path round to 8 bits
 #: before the softmax and the difference compounds over 32 layers
 LOGITS_REL_TOL = 5e-2
 #: peak rates of one H100 SXM (NVIDIA data sheet, dense): bf16 tensor
 #: cores, fp32 CUDA cores, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 NEG_INF = -1e30
 
@@ -108,6 +130,9 @@ def _time_ms(fn, iters: int = 20) -> float:
 
 
 def phase_device() -> str:
+    import importlib.util
+    import shutil
+
     import torch
 
     if os.environ.get("DEMODEL_FLASH_ATTN", "").strip().lower() in (
@@ -124,7 +149,10 @@ def phase_device() -> str:
     _say("device", card=smi, torch=torch.__version__,
          cuda=torch.version.cuda,
          allow_tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
-                     "cudnn": torch.backends.cudnn.allow_tf32})
+                     "cudnn": torch.backends.cudnn.allow_tf32},
+         which={t: shutil.which(t) for t in ("g++", "c++", "make", "nvcc")},
+         installed={m: importlib.util.find_spec(m) is not None
+                    for m in ("requests", "cryptography", "jax")})
     return smi
 
 
@@ -149,7 +177,8 @@ def _hgmma_counts(lib) -> dict[str, int]:
             counts[fn] += 1
     named = {}
     for fn, n in counts.items():
-        kind = ("wgmma_bf16" if "flash_fwd_wgmma" in fn else
+        kind = ("wgmma_f16" if "flash_fwd_wgmmaI6__half" in fn else
+                "wgmma_bf16" if "flash_fwd_wgmma" in fn else
                 "simt_f32" if "flash_fwd_kernel" in fn else None)
         dim = "64" if "Li64E" in fn else "128" if "Li128E" in fn else "?"
         if kind:
@@ -158,33 +187,37 @@ def _hgmma_counts(lib) -> dict[str, int]:
 
 
 def phase_build() -> None:
-    """Build every kernel library at once: one nvcc per source, started
-    together."""
+    """Build every library at once: one nvcc per kernel source and one
+    g++ for the store library, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from demodel_tpu_torch import native
     from demodel_tpu_torch.ops import dequant as dq
     from demodel_tpu_torch.ops import flash_attention as fa
 
-    mods = {"flash_attention": fa, "dequant": dq}
+    builders = {"flash_attention": fa.build_library,
+                "dequant": dq.build_library, "store": native.build}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as pool:
-        futs = {k: pool.submit(m.build_library) for k, m in mods.items()}
+    with ThreadPoolExecutor(len(builders)) as pool:
+        futs = {k: pool.submit(b) for k, b in builders.items()}
         libs = {k: f.result() for k, f in futs.items()}
-    for m in mods.values():
-        m._library()
+    fa._library()
+    dq._library()
+    native.lib()
     secs = time.perf_counter() - t0
-    ptxas = {k: [ln.strip() for ln in lib.with_suffix(".log").read_text()
+    ptxas = {k: [ln.strip() for ln in libs[k].with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln or "spill" in ln]
-             for k, lib in libs.items()}
+             for k in ("flash_attention", "dequant")}
     hgmma = _hgmma_counts(libs["flash_attention"])
     _say("build", seconds=round(secs, 3),
          libraries={k: lib.name for k, lib in libs.items()}, ptxas=ptxas,
          hgmma=hgmma)
-    tc = {k: n for k, n in hgmma.items() if k.startswith("wgmma_bf16")}
-    if sorted(tc) != ["wgmma_bf16_d128", "wgmma_bf16_d64"] or \
+    tc = {k: n for k, n in hgmma.items() if k.startswith("wgmma")}
+    if sorted(tc) != ["wgmma_bf16_d128", "wgmma_bf16_d64",
+                      "wgmma_f16_d128", "wgmma_f16_d64"] or \
             min(tc.values()) == 0:
-        raise AssertionError(f"bf16 flash kernels without tensor-core "
-                             f"instructions in their SASS: {hgmma}")
+        raise AssertionError(f"bf16 or f16 flash kernels without tensor-"
+                             f"core instructions in their SASS: {hgmma}")
 
 
 # --------------------------------------------------------------- phase 3
@@ -224,6 +257,10 @@ CASES = [
     _case("f32_prefill", 1, 200, 200, 32, 32, 128, "float32", lse=True),
     _case("f32_d64_gqa_lse", 2, 70, 90, 8, 2, 64, "float32", causal=False,
           lse=True),
+    # a pulled F16 Llama-2 checkpoint's prefill
+    _case("f16_prefill_s17", 1, 17, 17, 32, 32, 128, "float16"),
+    _case("f16_prefill_s512", 1, 512, 512, 32, 32, 128, "float16", lse=True),
+    _case("f16_prefill_s2048", 1, 2048, 2048, 32, 32, 128, "float16"),
 ]
 #: device-time attribution: K1's own kernels, and everything else
 K1_KERNELS = ("flash_fwd_wgmma", "flash_fwd_kernel")
@@ -237,9 +274,15 @@ def _window(x):
     return x
 
 
-def _per_call_device_ms(fn, groups, iters: int = 20) -> dict[str, float]:
+def _per_call_device_ms(fn, groups, counts_ok=None, iters: int = 20):
     """Device ms per call of ``fn`` by group, over ``iters`` calls after
-    a warm-up, from torch.profiler."""
+    a warm-up, the device activities per call by name, and where the
+    times come from. From torch.profiler (:func:`_device_ms`;
+    ``counts_ok`` sees the counts of all ``iters`` calls). Where every
+    trace lost launched work, the first group's time is the call's time
+    on CUDA events instead (which includes launch gaps, so it is never
+    less than the device time), the other groups' is None, and the
+    activities are None."""
     import torch
 
     fn()
@@ -249,7 +292,14 @@ def _per_call_device_ms(fn, groups, iters: int = 20) -> dict[str, float]:
         for _ in range(iters):
             fn()
 
-    return {k: v / iters for k, v in _device_ms(run, groups).items()}
+    got = _device_ms(run, groups, counts_ok)
+    if got is None:
+        first = next(iter(groups))
+        return ({k: _time_ms(fn, iters) if k == first else None
+                 for k in groups}, None, "cuda_events")
+    ms, counts = got
+    return ({k: v / iters for k, v in ms.items()},
+            {k: v / iters for k, v in counts.items()}, "profiler")
 
 
 def _kernel_case(c) -> dict:
@@ -292,7 +342,7 @@ def _kernel_case(c) -> dict:
         raise AssertionError(f"kernel case {c['name']}: no launch of "
                              f"{plan.kernel}")
     err = (got.float() - want.float()).abs().max().item()
-    tol = BF16_TOL if c["dtype"] == "bfloat16" else F32_TOL
+    tol = TOL[c["dtype"]]
     seen = want_lse > NEG_INF / 2
     lse_err = ((got_lse - want_lse)[seen].abs().max().item()
                if seen.any() else 0.0)
@@ -309,11 +359,13 @@ def _kernel_case(c) -> dict:
         return kernel(c["lse"])
 
     ms = _time_ms(call)
-    dev = _per_call_device_ms(call, {
+    # one K1 launch a call, so the trace of 20 calls holds 20 of them
+    dev, _, dev_by = _per_call_device_ms(call, {
         "k1": lambda n: any(s in n for s in K1_KERNELS),
-        "other": lambda n: not any(s in n for s in K1_KERNELS)})
+        "other": lambda n: not any(s in n for s in K1_KERNELS)},
+        counts_ok={"k1": lambda c: sum(c.values()) == 20})
     plain_ms = _time_ms(plain)
-    lib_ms = lib_dev_ms = None
+    lib_ms = lib_dev_ms = lib_kernels = lib_dev_by = None
     if c["kv_len"] is None and c["offset"] is None and (
             not c["causal"] or Sq == Sk):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -324,7 +376,9 @@ def _kernel_case(c) -> dict:
                 qt, kt, vt, is_causal=c["causal"], **gqa)
 
         lib_ms = _time_ms(sdpa)
-        lib_dev_ms = _per_call_device_ms(sdpa, {"all": lambda n: True})["all"]
+        lib_dev, lib_kernels, lib_dev_by = _per_call_device_ms(
+            sdpa, {"all": lambda n: True}, counts_ok={"all": _every_call(20)})
+        lib_dev_ms = lib_dev["all"]
     # work this run's data needs: 4·D flops per visible (query, key) pair
     # per head; bytes of q, k, v read once and o (+ lse) written once
     pairs = int(fa._mask(kvb, offb, Sq, Sk, c["causal"]).sum().item()) * H
@@ -340,13 +394,16 @@ def _kernel_case(c) -> dict:
             "copies": list(plan.copy), "max_abs_err": err,
             "lse_err": lse_err, "tol": tol, "ms": ms,
             "device_ms": dev["k1"], "other_device_ms": dev["other"],
+            "device_ms_by": dev_by,
             "plain_ms": plain_ms, "library_ms": lib_ms,
-            "library_device_ms": lib_dev_ms,
+            "library_device_ms": lib_dev_ms, "library_kernels": lib_kernels,
+            "library_device_ms_by": lib_dev_by,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
-def phase_kernel() -> dict:
+def phase_kernel() -> tuple[dict, dict]:
+    """Every case; returns the bf16 and the f16 rows at S=512."""
     rows = {c["name"]: _kernel_case(c) for c in CASES}
     for r in rows.values():
         _say("kernel", **r)
@@ -358,13 +415,17 @@ def phase_kernel() -> dict:
     _say("floors", targets=K1_FLOORS, measured=measured,
          met={k: measured[k] <= v for k, v in K1_FLOORS.items()},
          s2048_ops_bound_share=s2048["bound_ms"] / s2048["device_ms"],
-         k1_over_sdpa_device={n: rows[f"prefill_s{n}"]["device_ms"]
-                              / rows[f"prefill_s{n}"]["library_device_ms"]
-                              for n in (17, 64, 96, 128, 512, 2048)},
+         # both from the profiler, else not measured
+         k1_over_sdpa_device={
+             n: (r["device_ms"] / r["library_device_ms"]
+                 if r["device_ms_by"] == r["library_device_ms_by"]
+                 == "profiler" else None)
+             for n in (17, 64, 96, 128, 512, 2048)
+             for r in [rows[f"prefill_s{n}"]]},
          k1_over_sdpa_call={n: rows[f"prefill_s{n}"]["ms"]
                             / rows[f"prefill_s{n}"]["library_ms"]
                             for n in (17, 64, 96, 128, 512, 2048)})
-    return s512
+    return s512, rows["f16_prefill_s512"]
 
 
 # --------------------------------------------------------------- phase 4
@@ -760,21 +821,47 @@ def _build_gguf(kind: str, n_layers: int, seed: int):
     return buf, specs, data_len
 
 
-def _device_ms(run, groups) -> dict[str, float]:
+def _device_ms(run, groups, counts_ok=None, tries: int = 5):
     """Summed device time (ms) during ``run()`` of the device activities
     (kernels, copies) whose names each group's predicate accepts, from
-    the CUDA profiler's trace."""
+    the CUDA profiler's trace, and the activities' count by name.
+    ``counts_ok`` maps a group to a check of its activities' counts by
+    name: work that launched but is missing from the trace fails it, and
+    ``run`` is measured again, up to ``tries`` times. Then this prints a
+    ``trace_lost`` line and returns None: a lost trace is never reported
+    as a fast one. (CUPTI drops records now and then on the H100: some
+    of one delivery's 16 launches, half of 20 SDPA calls, or a whole
+    trace.)"""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    return {k: sum(e.device_time_total for e in events if match(e.key)) / 1e3
-            for k, match in groups.items()}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        ms = {k: sum(e.device_time_total for e in events if match(e.key))
+              / 1e3 for k, match in groups.items()}
+        counts = {k: {e.key: e.count for e in events if match(e.key)}
+                  for k, match in groups.items()}
+        bad = {k: counts[k] for k, ok in (counts_ok or {}).items()
+               if not ok(counts[k])}
+        if not bad:
+            return ms, {e.key: e.count for e in events}
+    _say("trace_lost", groups=list(groups), held=bad, tries=tries)
+    return None
+
+
+def _every_call(iters: int):
+    """A ``counts_ok`` check for ``iters`` calls that launch the same
+    work each: every activity a whole number of times a call, and at
+    least one that is not a memset or a copy."""
+    def ok(c: dict[str, int]) -> bool:
+        return (all(n > 0 and n % iters == 0 for n in c.values())
+                and any("Memset" not in k and "Memcpy" not in k for k in c))
+    return ok
 
 
 #: the dequant kernels' names, for their device-time sum
@@ -875,10 +962,15 @@ def _gguf_file(kind: str, n_layers: int, seed: int) -> dict:
 
     # summed kernel and copy times, from a second delivery under the
     # profiler
-    dev_ms = _device_ms(lambda: deliver_gguf(
+    traced = _device_ms(lambda: deliver_gguf(
         None, f"llama-7b-{kind}", out_dtype=torch.bfloat16, buffer=buf),
         {"kernel_ms_sum": lambda k: any(n in k for n in DEQUANT_KERNELS),
-         "h2d_ms_sum": lambda k: "HtoD" in k})
+         "h2d_ms_sum": lambda k: "HtoD" in k},
+        counts_ok={"kernel_ms_sum": lambda c: sum(c.values()) > 0,
+                   "h2d_ms_sum": lambda c: sum(c.values()) > 0})
+    # not measured where every trace lost the delivery's work
+    dev_ms, events = traced or ({"kernel_ms_sum": None,
+                                 "h2d_ms_sum": None}, None)
     torch.cuda.empty_cache()
     return {"file": kind, "layers": n_layers, "tensors": len(specs),
             "gguf_bytes": len(buf), "quantized_data_bytes": data_len,
@@ -886,6 +978,10 @@ def _gguf_file(kind: str, n_layers: int, seed: int) -> dict:
             "quantized_GBps": data_len / wall_s / 1e9,
             **dev_ms, "host_split_s": split_s,
             "launches": {k: v for k, v in launches.items() if v},
+            # beside the launches, so a trace that lost some shows it
+            "kernels_in_trace": events and sum(
+                v for k, v in events.items()
+                if any(n in k for n in DEQUANT_KERNELS)),
             "values": values, "bf16_bytes": 2 * values,
             "held_vs_plain": held, "max_abs_err_vs_plain": max(errs),
             "ref_dequant_tensor": name, "ref_dequant_err": ref_err}
@@ -907,6 +1003,364 @@ def phase_gguf() -> dict[str, int]:
             total[fmt] += n
         _say("gguf", **row)
     return total
+
+
+# ----------------------------------------------------------------- pull
+
+#: the checkpoint the pull phase serves: Llama-2-7B's published widths
+#: and its stored dtype, cut from 32 to 8 layers
+PULL_MODEL = "meta-llama/Llama-2-7b-hf"
+PULL_LAYERS = 8
+PULL_PROMPTS = (17, 128, 512)
+PULL_NEW = 8
+PULL_COMMIT = "c0ffee" * 6 + "c0ff"
+
+
+def _llama_hf_shapes(n_layers: int) -> list[tuple[str, tuple[int, ...]]]:
+    """(name, shape) of a ``transformers`` Llama-2-7B state dict
+    (``nn.Linear`` weights ``[out, in]``), in checkpoint order."""
+    out = [("model.embed_tokens.weight", (VOCAB, HIDDEN))]
+    for i in range(n_layers):
+        p = f"model.layers.{i}."
+        out += [(p + "input_layernorm.weight", (HIDDEN,)),
+                (p + "self_attn.q_proj.weight", (HIDDEN, HIDDEN)),
+                (p + "self_attn.k_proj.weight", (HIDDEN, HIDDEN)),
+                (p + "self_attn.v_proj.weight", (HIDDEN, HIDDEN)),
+                (p + "self_attn.o_proj.weight", (HIDDEN, HIDDEN)),
+                (p + "post_attention_layernorm.weight", (HIDDEN,)),
+                (p + "mlp.gate_proj.weight", (INTER, HIDDEN)),
+                (p + "mlp.up_proj.weight", (INTER, HIDDEN)),
+                (p + "mlp.down_proj.weight", (HIDDEN, INTER))]
+    return out + [("model.norm.weight", (HIDDEN,)),
+                  ("lm_head.weight", (VOCAB, HIDDEN))]
+
+
+def _hf_checkpoint(n_layers: int, seed: int):
+    """A Llama-2-7B-width F16 checkpoint of seeded random weights: the
+    source tensors on the card, and the repo's files (config.json, two
+    safetensors shards, their index) as bytes in host memory."""
+    import torch
+
+    from demodel_tpu_torch.formats import safetensors as st
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    src = {}
+    for name, shape in _llama_hf_shapes(n_layers):
+        if len(shape) == 1:
+            t = torch.ones(shape, device="cuda")
+        else:
+            std = 0.02 if "embed" in name else shape[1] ** -0.5
+            t = torch.randn(shape, generator=gen, device="cuda") * std
+        src[name] = t.to(torch.float16)
+    config = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+              "vocab_size": VOCAB, "hidden_size": HIDDEN,
+              "intermediate_size": INTER, "num_hidden_layers": n_layers,
+              "num_attention_heads": 32, "num_key_value_heads": 32,
+              "max_position_embeddings": 4096, "rms_norm_eps": 1e-5,
+              "rope_theta": 10000.0, "tie_word_embeddings": False,
+              "torch_dtype": "float16"}
+    names = list(src)
+    half = names.index(f"model.layers.{n_layers // 2}.input_layernorm.weight")
+    files = {"config.json": json.dumps(config).encode()}
+    weight_map = {}
+    for k, part in enumerate((names[:half], names[half:])):
+        fname = f"model-{k + 1:05d}-of-00002.safetensors"
+        files[fname] = st.serialize({n: src[n].cpu() for n in part})
+        weight_map.update({n: fname for n in part})
+    files["model.safetensors.index.json"] = json.dumps(
+        {"metadata": {"total_size": sum(t.numel() * 2 for t in src.values())},
+         "weight_map": weight_map}).encode()
+    return src, files
+
+
+def _hf_handler(repos: dict[str, dict[str, bytes]]):
+    """A HuggingFace Hub over ``repos`` ({repo: {file: bytes}}): the API
+    route, ``/resolve`` with a 302 to a ``/cdn`` path for LFS files
+    (``X-Linked-Etag``, ``X-Linked-Size``, ``X-Repo-Commit``), small
+    files directly, and Range on the CDN."""
+    import hashlib
+
+    digests = {r: {f: hashlib.sha256(b).hexdigest() for f, b in fs.items()}
+               for r, fs in repos.items()}
+    by_digest = {r: {sha: f for f, sha in m.items()}
+                 for r, m in digests.items()}
+
+    class Hub(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *a):
+            pass
+
+        def _send(self, status, body=b"", ctype="application/json",
+                  extra=None):
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in (extra or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            if self.command != "HEAD":
+                self.wfile.write(body)
+
+        def do_HEAD(self):
+            self.do_GET()
+
+        def do_GET(self):
+            path = self.path.split("?", 1)[0]
+            m = re.match(r"^/api/models/(.+?)/revision/([^/]+)$", path)
+            if m:
+                if m[1] not in repos:
+                    return self._send(404, b'{"error":"RepoNotFound"}')
+                return self._send(200, json.dumps({
+                    "sha": PULL_COMMIT, "id": m[1], "siblings": [
+                        {"rfilename": f} for f in sorted(repos[m[1]])]
+                }).encode())
+            m = re.match(r"^/(.+?)/resolve/([^/]+)/(.+)$", path)
+            if m:
+                repo, fname = m[1], m[3]
+                body = repos.get(repo, {}).get(fname)
+                if body is None:
+                    return self._send(404, b'{"error":"EntryNotFound"}')
+                sha = digests[repo][fname]
+                if fname.endswith(".safetensors"):
+                    host = self.headers.get("Host", "127.0.0.1")
+                    return self._send(302, extra={
+                        "Location": f"http://{host}/cdn/{repo}/{sha}",
+                        "X-Linked-Etag": f'"{sha}"',
+                        "X-Linked-Size": str(len(body)),
+                        "X-Repo-Commit": PULL_COMMIT,
+                        "Accept-Ranges": "bytes"})
+                return self._send(200, body, "application/octet-stream", {
+                    "ETag": f'"{sha}"', "X-Repo-Commit": PULL_COMMIT,
+                    "Accept-Ranges": "bytes"})
+            m = re.match(r"^/cdn/(.+?)/([0-9a-f]{64})$", path)
+            if m:
+                fname = by_digest.get(m[1], {}).get(m[2])
+                if fname is None:
+                    return self._send(404)
+                body = memoryview(repos[m[1]][fname])
+                rng = self.headers.get("Range", "")
+                if rng.startswith("bytes="):
+                    a, _, b = rng[6:].partition("-")
+                    start, end = int(a), int(b) if b else len(body) - 1
+                    part = body[start:end + 1]
+                    return self._send(206, part, "application/octet-stream", {
+                        "ETag": f'"{m[2]}"', "Content-Range":
+                        f"bytes {start}-{start + len(part) - 1}/{len(body)}"})
+                return self._send(200, body, "application/octet-stream", {
+                    "ETag": f'"{m[2]}"', "Accept-Ranges": "bytes"})
+            self._send(404, b'{"error":"not found"}')
+
+    return Hub
+
+
+def _span_s(name: str) -> float:
+    from demodel_tpu_torch.utils.metrics import HUB, labeled
+
+    h = HUB.histograms().get(labeled("stage_duration_seconds", span=name))
+    return h["sum"] if h else 0.0
+
+
+def _reset_k1() -> None:
+    from demodel_tpu_torch.ops import flash_attention as fa
+
+    fa.launches = 0
+    for name in fa.launches_by_kernel:
+        fa.launches_by_kernel[name] = 0
+
+
+def _generate_http(url: str, prompt: list[int], n: int) -> list[int]:
+    status, _, body = _post(url, {"prompt": prompt, "max_new_tokens": n})
+    if status != 200:
+        raise AssertionError(f"/generate answered {status}")
+    return json.loads(body)["tokens"]
+
+
+def phase_pull() -> int:
+    """Cold pull → placement → build → serve of the 8-layer F16
+    checkpoint; then the tiny config (:func:`_tiny_on_einsum`). Returns
+    the K1 launches of the main path (all on ``wgmma_f16``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from demodel_tpu_torch import delivery, serve
+    from demodel_tpu_torch.config import ProxyConfig
+    from demodel_tpu_torch.models import llama
+    from demodel_tpu_torch.ops import flash_attention as fa
+    from demodel_tpu_torch.serve import http
+
+    t0 = time.perf_counter()
+    src, files = _hf_checkpoint(PULL_LAYERS, seed=7)
+    build_s = time.perf_counter() - t0
+    nbytes = sum(len(b) for b in files.values())
+    hub = ThreadingHTTPServer(("127.0.0.1", 0), _hf_handler(
+        {PULL_MODEL: files}))
+    threading.Thread(target=hub.serve_forever, daemon=True).start()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-pull-")
+    cfg = ProxyConfig(cache_dir=os.path.join(tmp, "cache"),
+                      data_dir=os.path.join(tmp, "data"))
+    pgen = torch.Generator().manual_seed(8)
+    prompts = [_prompt(pgen, n, VOCAB) for n in PULL_PROMPTS]
+    engine = server = None
+    try:
+        spans = ("registry-fetch", "sink-deliver", "serve.load-model")
+        before = {k: _span_s(k) for k in spans}
+        torch.cuda.synchronize()
+        _reset_k1()  # count the main path's launches only
+        t0 = time.perf_counter()
+        engine = serve.load_model(
+            PULL_MODEL, cfg, endpoint=f"http://127.0.0.1:{hub.server_port}",
+            device="cuda", kv_mb=1024, max_new_tokens=PULL_NEW, max_batch=4,
+            queue_limit=8)
+        load_s = time.perf_counter() - t0
+        server = http.start()
+        tokens = [_generate_http(f"{server.url}/generate", p, PULL_NEW)
+                  for p in prompts]
+        launches = fa.launches
+        by_kernel = dict(fa.launches_by_kernel)
+        span_s = {k: _span_s(k) - before[k] for k in spans}
+        params, mcfg = engine.params, engine.cfg
+        engine.stop()
+        server.stop()
+        serve.install(None)
+        engine = server = None
+
+        # every placed tensor against its source, on the card
+        placed = {"model.embed_tokens.weight": params["embed"],
+                  "model.norm.weight": params["final_norm"],
+                  "lm_head.weight": params["lm_head"].T}
+        for i, layer in enumerate(params["layers"]):
+            p = f"model.layers.{i}."
+            placed[p + "input_layernorm.weight"] = layer["attn_norm"]
+            placed[p + "post_attention_layernorm.weight"] = layer["mlp_norm"]
+            for k in ("q", "k", "v", "o"):
+                placed[p + f"self_attn.{k}_proj.weight"] = \
+                    layer[f"{k}_proj"].T
+            for k in ("gate", "up", "down"):
+                placed[p + f"mlp.{k}_proj.weight"] = layer[f"{k}_proj"].T
+        unequal = [n for n, t in src.items()
+                   if not (placed[n].dtype == torch.float16
+                           and placed[n].device.type == "cuda"
+                           and torch.equal(placed[n], t))]
+        if sorted(placed) != sorted(src) or unequal:
+            raise AssertionError(f"pull: placed tensors differ from their "
+                                 f"sources: {unequal[:5]}")
+        if mcfg.dtype != "float16" or mcfg.num_hidden_layers != PULL_LAYERS:
+            raise AssertionError(f"pull: built {mcfg}")
+        want = PULL_LAYERS * len(prompts)
+        if launches != want or by_kernel["wgmma_f16"] != want:
+            raise AssertionError(f"pull: K1 launches {by_kernel}, expected "
+                                 f"{want} on wgmma_f16")
+
+        # prefill logits, kernel path vs plain path (comparison only)
+        rel_errs, first = [], []
+        with torch.inference_mode():
+            for p in prompts:
+                toks = torch.tensor([p], device="cuda")
+                got = llama.step_prefill(params, toks, mcfg)[0][0].float()
+                os.environ["DEMODEL_FLASH_ATTN"] = "0"
+                try:
+                    ref = llama.step_prefill(params, toks, mcfg)[0][0].float()
+                finally:
+                    del os.environ["DEMODEL_FLASH_ATTN"]
+                rel_errs.append(((got - ref).norm() / ref.norm()).item())
+                first.append(int(torch.argmax(got).item()))
+        if max(rel_errs) > LOGITS_REL_TOL or not all(map(np.isfinite,
+                                                         rel_errs)):
+            raise AssertionError(f"pull: prefill logits kernel vs plain rel "
+                                 f"errors {rel_errs} > {LOGITS_REL_TOL}")
+        for p, toks, f in zip(prompts, tokens, first):
+            if len(toks) != PULL_NEW or toks[0] != f:
+                raise AssertionError(f"pull: prompt {len(p)}: tokens {toks}, "
+                                     f"kernel-path prefill argmax {f}")
+
+        store = delivery.open_store(cfg)
+        try:
+            mkey = delivery.manifest_key("hf", PULL_MODEL)
+            record = json.loads(store.get(mkey)) if store.has(mkey) else {}
+            stored = sum(store.size(f["key"]) for f in record.get("files", []))
+        finally:
+            store.close()
+        if sorted(f["name"] for f in record.get("files", [])) != \
+                sorted(files) or stored != nbytes:
+            raise AssertionError(f"pull: manifest record {mkey} lists "
+                                 f"{record.get('files')}")
+        del params, placed
+        torch.cuda.empty_cache()
+    finally:
+        if engine is not None:
+            engine.stop()
+            serve.install(None)
+        if server is not None:
+            server.stop()
+        hub.shutdown()
+        hub.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    tiny = _tiny_on_einsum()
+    load = span_s["serve.load-model"]
+    # the registry pull's and the delivery's wall seconds, as the pull
+    # recorded them in its manifest; the spans' sums (fetches overlap, so
+    # registry-fetch can exceed the wall) and shares of serve.load-model
+    pull_s, sink_s = record["secs"], record["tpu_sink"]["secs"]
+    _say("pull", model=f"{PULL_MODEL} widths, {PULL_LAYERS} layers, f16, "
+         "seeded", checkpoint_build_s=round(build_s, 3), pulled_bytes=nbytes,
+         pull_s=pull_s, pull_and_place_s=sink_s, load_model_s=load_s,
+         span_sum_s=span_s,
+         span_share={k: v / load for k, v in span_s.items()},
+         pull_GBps=nbytes / pull_s / 1e9, load_GBps=nbytes / load / 1e9,
+         tensors_equal=len(src),
+         k1_launches=launches, k1_launches_by_kernel=by_kernel,
+         prompt_lens=list(PULL_PROMPTS), tokens=tokens,
+         logits_rel_err=rel_errs, logits_tol=LOGITS_REL_TOL,
+         manifest_key=mkey, tiny=tiny)
+    return launches
+
+
+def _tiny_on_einsum() -> dict:
+    """``LlamaConfig.tiny()`` (head dim 8, which no kernel takes) on the
+    card. By default its prefill reaches K1, whose plan refuses it:
+    nothing on the card drops to einsum unasked. With the caller's
+    explicit ``DEMODEL_FLASH_ATTN=0`` it is served on the einsum path, no
+    K1 launch, its engine tokens equal to the sequential ``generate``."""
+    import torch
+
+    from demodel_tpu_torch import serve
+    from demodel_tpu_torch.models import llama
+    from demodel_tpu_torch.ops import flash_attention as fa
+
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(torch.Generator("cuda").manual_seed(9), cfg,
+                               "cuda")
+    prompt = _prompt(torch.Generator().manual_seed(10), 12, cfg.vocab_size)
+    try:
+        llama.step_prefill(params, torch.tensor([prompt], device="cuda"),
+                           cfg)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("tiny: head dim 8 on the card did not raise "
+                             "without DEMODEL_FLASH_ATTN=0")
+    os.environ["DEMODEL_FLASH_ATTN"] = "0"
+    try:
+        want = llama.generate(params, cfg, prompt, PULL_NEW)[0].tolist()
+        _reset_k1()
+        engine = serve.boot(params, cfg, device="cuda", kv_mb=16,
+                            max_new_tokens=PULL_NEW)
+        try:
+            got = engine.submit(prompt, PULL_NEW).result(timeout=600)
+        finally:
+            engine.stop()
+            serve.install(None)
+    finally:
+        del os.environ["DEMODEL_FLASH_ATTN"]
+    if fa.launches != 0 or got != want:
+        raise AssertionError(f"tiny: K1 launches {fa.launches_by_kernel}, "
+                             f"tokens {got} vs generate {want}")
+    return {"head_dim": cfg.head_dim, "default_refused": refused,
+            "k1_launches": fa.launches, "tokens": got}
 
 
 def _dequant_entries(rows: dict[str, dict], launches: dict[str, int]
@@ -945,29 +1399,29 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
-    k512 = phase_kernel()
+    k512, f16_512 = phase_kernel()
     dq_rows = phase_dequant()
     launches = phase_slice()
     phase_parity()
     dq_launches = phase_gguf()
+    f16_launches = phase_pull()
     _say("done", total_s=round(time.perf_counter() - t0, 3))
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "demodel_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "demodel_tpu/ops/flash_attention.py:136",
-        "launches": launches,
-        "max_abs_err": k512["max_abs_err"],
-        "ms": k512["ms"],
-        "plain_ms": k512["plain_ms"],
-        "bound_ms": k512["bound_ms"],
-        "bound_by": k512["bound_by"],
-        "library_ms": k512["library_ms"],
-        "device_ms": k512["device_ms"],
-        "library_device_ms": k512["library_device_ms"],
-        "shape": k512["shape"],
-    }, *_dequant_entries(dq_rows, dq_launches)]}), flush=True)
+
+    def flash_entry(name: str, row: dict, n: int) -> dict:
+        return {"name": name, "route": "cuda",
+                "source": "demodel_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "demodel_tpu/ops/flash_attention.py:136",
+                "launches": n, **{k: row[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "device_ms", "device_ms_by",
+                    "library_device_ms", "library_device_ms_by", "shape",
+                    "dtype")}}
+
+    print(json.dumps({"kernels": [
+        flash_entry("flash_attention", k512, launches),
+        flash_entry("flash_attention_f16", f16_512, f16_launches),
+        *_dequant_entries(dq_rows, dq_launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

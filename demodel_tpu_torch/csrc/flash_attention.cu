@@ -1,5 +1,6 @@
 // Fused flash-attention forward for NVIDIA Hopper (sm_90a): two kernels,
-// chosen by the input dtype alone.
+// the tensor-core one instantiated for bf16 and for f16, chosen by the input
+// dtype alone.
 //
 // Replaces the Pallas TPU kernel demodel_tpu/ops/flash_attention.py
 // `_flash_kernel` (launched by `_flash_forward`, public entry
@@ -15,9 +16,9 @@
 // a causal layer is bound by the tensor cores (34.7 us of operations at
 // S=2048).
 //
-// bf16: `flash_fwd_wgmma<D>`, on the tensor cores. One block per 64 query
-// rows of one (batch row, head): one consumer warpgroup (4 warps) and one
-// producer warp. The producer loads the Q tile once and streams 64-key K and
+// bf16 and f16: `flash_fwd_wgmma<T, D>`, on the tensor cores. One block per
+// 64 query rows of one (batch row, head): one consumer warpgroup (4 warps)
+// and one producer warp. The producer loads the Q tile once and streams 64-key K and
 // V tiles through a 2-stage ring in shared memory with TMA (4-D tensor maps
 // over the (B, S, H, D) strides, 128-byte swizzle, out-of-bounds rows zero
 // filled), each tile signalled through an mbarrier, so the next tile's loads
@@ -28,12 +29,15 @@
 // threads that share the row (2 shuffles); the causal and kv_len masks are
 // applied only on tiles that cross the diagonal or the kv_len edge. O += P.V
 // is `wgmma` with P taken from registers (the S accumulator's fragment is the
-// A operand's layout once packed to bf16) and V read MN-major from the ring.
-// The epilogue divides by l, stores bf16 and the LSE, (m2 + log2 l) * ln 2.
-// Numerics: P is rounded to bf16 (against its row's running max) before
-// P.V, where the plain version keeps fp32; the JAX reference itself rounds
-// the probabilities to q's dtype. That is about 2^-9 relative per term,
-// well inside the bf16 tolerance of 2e-2.
+// A operand's layout once packed to T) and V read MN-major from the ring.
+// The epilogue divides by l, stores T and the LSE, (m2 + log2 l) * ln 2.
+// Numerics: P is rounded to T (against its row's running max) before P.V,
+// where the plain version keeps fp32; the JAX reference itself rounds the
+// probabilities to q's dtype. That is about 2^-9 relative per term in bf16
+// and 2^-12 in f16, well inside the tolerance of 2e-2. The f16 instantiation
+// differs from the bf16 one only in the operand type of both `wgmma`s
+// (`.f32.f16.f16`), the TMA map's element type and the packing of P and the
+// output; a pulled Llama-2 checkpoint is stored in f16 and reaches K1 so.
 //
 // float32: `flash_fwd_kernel<float, D>`, on the CUDA cores, because the JAX
 // kernel computes in fp32 and the f32 tolerances (1e-4) rule out bf16 or TF32
@@ -52,6 +56,7 @@
 
 #include <cuda.h>  // CUtensorMap and the encoder's types; no -lcuda needed
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -68,7 +73,7 @@ struct LaunchArgs {
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   long long causal;
-  long long kernel;  // 0: float32 CUDA cores, 1: bf16 tensor cores
+  long long kernel;  // 0: float32 CUDA cores, 1: bf16 and 2: f16 tensor cores
   long long grid_x, threads, smem;
   long long device;
   double scale;
@@ -260,7 +265,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// --------------------------------------------------------- bf16, wgmma
+// ---------------------------------------------------- bf16 and f16, wgmma
 
 constexpr int kTcRows = 64;     // query rows per block (one wgmma M)
 constexpr int kTcKeys = 64;     // keys per K/V tile
@@ -373,86 +378,133 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// The element type of the tensor-core kernel: how P and the output pack,
+// and which TMA element type maps q, k and v
+template <typename T>
+struct TcType;
+template <>
+struct TcType<__nv_bfloat16> {
+  static constexpr bool kHalf = false;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+template <>
+struct TcType<__half> {
+  static constexpr bool kHalf = true;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
 
+// the 32 and 64 fp32 accumulator registers of a 64x64 and a 64x128 tile
+#define DM_ACC32(d)                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),      \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+      "+f"(d[31])
+#define DM_ACC64(d)                                                            \
+  DM_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),             \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),         \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),         \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),         \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),         \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define DM_REGS32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "     \
+  "%30, %31}"
+#define DM_REGS64                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "     \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "     \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "     \
+  "%58, %59, %60, %61, %62, %63}"
 // D[64x64] (+)= A[64x16] . B[16x64], A and B K-major in shared memory
+#define DM_WGMMA_SS_64(TY)                                                     \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                 \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " DM_REGS32      \
+  ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+// D[64xN] += A[64x16] . B[16xN], A in registers, B MN-major in shared memory
+#define DM_WGMMA_RS_64(TY)                                                     \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                 \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " DM_REGS32      \
+  ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+#define DM_WGMMA_RS_128(TY)                                                    \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                 \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " DM_REGS64     \
+  ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+
+template <bool kHalf>
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kHalf)
+    asm volatile(DM_WGMMA_SS_64("f16")
+                 : DM_ACC32(d)
+                 : "l"(da), "l"(db), "r"(scale_d));
+  else
+    asm volatile(DM_WGMMA_SS_64("bf16")
+                 : DM_ACC32(d)
+                 : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D[64x64] += A[64x16] . B[16x64], A in registers, B MN-major in shared memory
+template <bool kHalf>
 __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32],
                                                      const uint32_t (&a)[4],
                                                      uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kHalf)
+    asm volatile(DM_WGMMA_RS_64("f16")
+                 : DM_ACC32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(DM_WGMMA_RS_64("bf16")
+                 : DM_ACC32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D[64x128] += A[64x16] . B[16x128], A in registers, B MN-major in shared memory
+template <bool kHalf>
 __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64],
-                                                     const uint32_t (&a)[4],
-                                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  if constexpr (kHalf)
+    asm volatile(DM_WGMMA_RS_128("f16")
+                 : DM_ACC64(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(DM_WGMMA_RS_128("bf16")
+                 : DM_ACC64(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
+template <bool kHalf, int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_m64n64k16_tb(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_rs_m64n128k16_tb(o, a, db);
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64)
+    wgmma_rs_m64n64k16_tb<kHalf>(o, a, db);
+  else
+    wgmma_rs_m64n128k16_tb<kHalf>(o, a, db);
 }
 
 // Accumulator layout of a 64xN wgmma tile (fp32): thread t of the
 // warpgroup (warp w, lane l) holds rows r0 = 16w + l/4 and r0 + 8, columns
 // 8j + 2(l%4) + {0,1}; register 4j + 2i + c is (row r0 + 8i, column
 // 8j + 2(l%4) + c).
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads, 2)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     const TcParams p) {
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  constexpr bool kHalf = TcType<T>::kHalf;
   constexpr int kBoxes = D / 64;  // 128-byte column boxes per row
   constexpr uint32_t kTile = tc_tile_bytes<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -552,7 +604,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-      wgmma_ss_m64n64k16(sc, sw128_desc(sq + off, 16, 1024),
+      wgmma_ss_m64n64k16<kHalf>(sc, sw128_desc(sq + off, 16, 1024),
                          sw128_desc(sk + s * kTile + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
@@ -608,14 +660,14 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       }
     }
 
-    // P in bf16 as the A operand: keys 16kk..16kk+15 are accumulator
+    // P in T as the A operand: keys 16kk..16kk+15 are accumulator
     // columns 8(2kk) and 8(2kk+1), already in the A fragment's order
     uint32_t pa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+        pa[kk][r] = TcType<T>::pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
     // O += P . V: V tile read MN-major, 16 keys (2 groups of 8 rows,
     // 1024 bytes apart) per step; column boxes 8192 bytes apart
@@ -624,7 +676,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(o, pa[kk],
+      wgmma_pv<kHalf, D>(o, pa[kk],
                   sw128_desc(sv + s * kTile + kk * 2048, kBoxBytes, 1024));
     wgmma_commit();
     wgmma_wait0();
@@ -643,13 +695,11 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     const int row = q0 + r0 + 8 * i;
     if (row >= p.Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
-                          row * p.o_ss + h * p.o_sh + cq;
+    T* orow = static_cast<T*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh + cq;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(o[4 * j + 2 * i] * inv,
-                                o[4 * j + 2 * i + 1] * inv);
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          TcType<T>::pack(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
     if (p.lse != nullptr && (lane & 3) == 0)
       p.lse[(static_cast<long long>(b) * p.Sq + row) * p.H + h] =
           l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : kNegInf;
@@ -685,12 +735,13 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// 4-D bf16 map over a (B, S, heads, D) tensor, innermost first, boxes of
+// 4-D map of 2-byte elements (`type`) over a (B, S, heads, D) tensor, innermost first, boxes of
 // 64 d-values (128 bytes, swizzled) x 1 head x 64 rows x 1 batch row; rows
 // past S read as zeros. Strides in elements; the caller guarantees a
 // 16-byte aligned base and 16-byte multiple strides.
-bool encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int S,
-                int B, long long s_head, long long s_row, long long s_batch) {
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                int D, int heads, int S, int B, long long s_head,
+                long long s_row, long long s_batch) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -702,7 +753,7 @@ bool encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int S,
                                  static_cast<cuuint64_t>(s_batch) * 2};
   const cuuint32_t box[4] = {64, 1, kTcKeys, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return encode(map, type, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -758,13 +809,15 @@ cudaError_t launch_simt(const LaunchArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_wgmma(const LaunchArgs& a, cudaStream_t stream) {
+  constexpr int kKind = TcType<T>::kHalf ? 2 : 1;
+  constexpr CUtensorMapDataType kMap = TcType<T>::kMap;
   const int smem = tc_smem_bytes<D>();
   if (a.smem != smem || a.threads != kTcThreads) return cudaErrorInvalidValue;
-  cudaError_t err =
-      allow_smem<1, D>(reinterpret_cast<const void*>(flash_fwd_wgmma<D>), smem,
-                       static_cast<int>(a.device));
+  cudaError_t err = allow_smem<kKind, D>(
+      reinterpret_cast<const void*>(flash_fwd_wgmma<T, D>), smem,
+      static_cast<int>(a.device));
   if (err != cudaSuccess) return err;
   const int B = static_cast<int>(a.B), Sq = static_cast<int>(a.Sq);
   const int Sk = static_cast<int>(a.Sk), H = static_cast<int>(a.H);
@@ -772,12 +825,12 @@ cudaError_t launch_wgmma(const LaunchArgs& a, cudaStream_t stream) {
   // with no keys no K/V tile is ever loaded, and an empty tensor has no
   // address to map
   CUtensorMap tq, tk = {}, tv = {};
-  if (!encode_map(&tq, reinterpret_cast<const void*>(a.q), D, H, Sq, B,
+  if (!encode_map(&tq, kMap, reinterpret_cast<const void*>(a.q), D, H, Sq, B,
                   a.q_sh, a.q_ss, a.q_sb) ||
       (Sk > 0 &&
-       (!encode_map(&tk, reinterpret_cast<const void*>(a.k), D, G, Sk, B,
+       (!encode_map(&tk, kMap, reinterpret_cast<const void*>(a.k), D, G, Sk, B,
                     a.k_sh, a.k_ss, a.k_sb) ||
-        !encode_map(&tv, reinterpret_cast<const void*>(a.v), D, G, Sk, B,
+        !encode_map(&tv, kMap, reinterpret_cast<const void*>(a.v), D, G, Sk, B,
                     a.v_sh, a.v_ss, a.v_sb))))
     return cudaErrorInvalidValue;
   TcParams p;
@@ -797,7 +850,7 @@ cudaError_t launch_wgmma(const LaunchArgs& a, cudaStream_t stream) {
   p.scale_log2 = static_cast<float>(a.scale * 1.4426950408889634);
   p.causal = static_cast<int>(a.causal);
   const dim3 grid(static_cast<unsigned>(a.grid_x), H, B);
-  flash_fwd_wgmma<D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, p);
+  flash_fwd_wgmma<T, D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -817,7 +870,9 @@ extern "C" int demodel_flash_attention_fwd(const LaunchArgs* args,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.kernel == 0 && a.D == 64) return launch_simt<64>(a, s);
   if (a.kernel == 0 && a.D == 128) return launch_simt<128>(a, s);
-  if (a.kernel == 1 && a.D == 64) return launch_wgmma<64>(a, s);
-  if (a.kernel == 1 && a.D == 128) return launch_wgmma<128>(a, s);
+  if (a.kernel == 1 && a.D == 64) return launch_wgmma<__nv_bfloat16, 64>(a, s);
+  if (a.kernel == 1 && a.D == 128) return launch_wgmma<__nv_bfloat16, 128>(a, s);
+  if (a.kernel == 2 && a.D == 64) return launch_wgmma<__half, 64>(a, s);
+  if (a.kernel == 2 && a.D == 128) return launch_wgmma<__half, 128>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from demodel_tpu_torch.device import resolve
 from demodel_tpu_torch.models.common import rms_norm, use_flash_attention
 from demodel_tpu_torch.ops.flash_attention import flash_attention
-from demodel_tpu_torch.ops.ring_attention import NEG_INF, dense_attention
+from demodel_tpu_torch.ops.ring_attention import dense_attention, mask_scores
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -185,7 +185,7 @@ def _attn(layer, x, cfg: LlamaConfig, positions, kv_cache=None,
             kpos = torch.arange(S, device=x.device)
             qpos = cache_pos + torch.arange(T, device=x.device)
             mask = kpos[None, :] <= qpos[:, None]
-            scores = scores.masked_fill(~mask[None, None], NEG_INF)
+            scores = mask_scores(scores, mask[None, None])
             probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
             out = _einsum("bhqk,bkhd->bqhd", probs, vv)
     elif use_flash_attention(q.device):
@@ -297,7 +297,7 @@ def step_decode(params, tokens: torch.Tensor, cfg: LlamaConfig, cache,
         scores = _einsum("bqhd,bkhd->bhqk", q, kk) * hd ** -0.5
         kpos = torch.arange(S + 1, device=x.device)
         valid = (kpos[None, :] < lengths[:, None]) | (kpos[None, :] == S)
-        scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+        scores = mask_scores(scores, valid[:, None, None, :])
         probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
         out = _einsum("bhqk,bkhd->bqhd", probs, vv)
         x = x + _mm(out.reshape(B, 1, H * hd), layer["o_proj"])

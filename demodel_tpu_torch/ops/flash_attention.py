@@ -17,9 +17,10 @@ Dispatch is by the tensors' device alone:
   the JAX package;
 - CUDA tensors go to a kernel in ``csrc/flash_attention.cu``, built
   with nvcc at first use into ``build/torch_kernels/`` and loaded with
-  ctypes: bf16 to the tensor-core kernel (``wgmma`` over a TMA ring),
-  float32 to the CUDA-core kernel. The dtype alone chooses; a build or
-  launch failure raises, and nothing falls back.
+  ctypes: bf16 and f16 to the tensor-core kernel (``wgmma`` over a TMA
+  ring, one instantiation per type), float32 to the CUDA-core kernel.
+  The dtype alone chooses; a dtype or head dim that no kernel takes, a
+  build or a launch failure raises, and nothing falls back.
 
 :func:`launch_plan` makes every host-side choice of a launch (checks,
 kernel, windows by value or as a tensor, copies for TMA alignment, grid
@@ -50,7 +51,7 @@ NEG_INF = -1e30
 #: reset it to 0 around the run they observe
 launches = 0
 #: the same launches by kernel (:data:`KERNELS`' names)
-launches_by_kernel = {"wgmma_bf16": 0, "simt_f32": 0}
+launches_by_kernel = {"wgmma_bf16": 0, "wgmma_f16": 0, "simt_f32": 0}
 _launch_lock = threading.Lock()
 
 SOURCES = (_build.CSRC / "flash_attention.cu",)
@@ -60,7 +61,8 @@ NVCC_FLAGS = _build.NVCC_FLAGS
 _HEAD_DIMS = (64, 128)
 #: dtype → (kernel name, C enum, query rows per block, threads per block)
 KERNELS = {torch.float32: ("simt_f32", 0, 32, 256),
-           torch.bfloat16: ("wgmma_bf16", 1, 64, 160)}
+           torch.bfloat16: ("wgmma_bf16", 1, 64, 160),
+           torch.float16: ("wgmma_f16", 2, 64, 160)}
 #: K/V ring depth of the tensor-core kernel
 STAGES = 2
 _INT32 = (-2 ** 31, 2 ** 31 - 1)
@@ -210,7 +212,7 @@ def _as_int(x) -> int | None:
 
 
 def _tma_ok(t: torch.Tensor) -> bool:
-    """Can a TMA map read the bf16 ``t`` as it is: 16-byte aligned base,
+    """Can a TMA map read the 2-byte ``t`` as it is: 16-byte aligned base,
     unit last stride, the other strides multiples of 16 bytes (8
     elements)."""
     sb, ss, sh, sd = t.stride()
@@ -220,7 +222,7 @@ def _tma_ok(t: torch.Tensor) -> bool:
 def smem_bytes(kernel: str, D: int) -> int:
     """Dynamic shared memory of one block (mirrors csrc's
     ``tc_smem_bytes`` and ``smem_floats``)."""
-    if kernel == "wgmma_bf16":
+    if kernel.startswith("wgmma"):
         return 64 * D * 2 * (1 + 2 * STAGES) + 1024
     return 4 * (32 * D + 32 * (D + 1) + 32 * D)
 
@@ -232,8 +234,9 @@ def launch_plan(q, k, v, kv_len=None, causal_offset=None) -> LaunchPlan:
     B, Sq, H, D = q.shape
     Sk, G = k.shape[1], k.shape[2]
     if q.dtype not in KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes float32 or bfloat16 q, k, v of "
-                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"flash kernel takes float32, bfloat16 or float16 q, "
+                        f"k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash kernel takes head dim {_HEAD_DIMS}, got {D}")
     if not (k.device == v.device == q.device):
@@ -241,7 +244,7 @@ def launch_plan(q, k, v, kv_len=None, causal_offset=None) -> LaunchPlan:
     if H > 65535 or B > 65535:
         raise ValueError(f"grid too large: B={B}, H={H}")
     kernel, code, rows, threads = KERNELS[q.dtype]
-    if kernel == "wgmma_bf16":
+    if kernel.startswith("wgmma"):
         copy = tuple(not _tma_ok(t) for t in (q, k, v))
     else:
         copy = tuple(t.stride(-1) != 1 for t in (q, k, v))

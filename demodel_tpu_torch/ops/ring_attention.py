@@ -10,6 +10,14 @@ import torch
 NEG_INF = -1e30  # large-but-finite: -inf rows would NaN through exp/where
 
 
+def mask_scores(scores: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """``scores`` with :data:`NEG_INF` where ``keep`` is false, as
+    ``jnp.where`` writes it in scores' dtype: in float16, whose range ends
+    at 65504, that is -inf."""
+    fill = torch.tensor(NEG_INF, dtype=scores.dtype).item()
+    return scores.masked_fill(~keep, fill)
+
+
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
@@ -24,6 +32,6 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if causal:
         mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~mask[None, None], NEG_INF)
+        scores = mask_scores(scores, mask[None, None])
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)

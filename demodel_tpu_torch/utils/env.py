@@ -1,4 +1,4 @@
-"""Degrade-not-crash env parsing (the serving knobs of
+"""Degrade-not-crash env parsing (the serving and pull knobs of
 ``demodel_tpu.utils.env``, same names and defaults).
 
 A malformed value logs a warning and yields the default.
@@ -77,3 +77,9 @@ def gen_max_new_tokens() -> int:
     """``DEMODEL_GEN_MAX_NEW``: per-request cap on generated tokens —
     admission reserves KV blocks for the worst case (prompt + this cap)."""
     return env_int("DEMODEL_GEN_MAX_NEW", 256, minimum=1)
+
+
+def cache_max_gb() -> int:
+    """``DEMODEL_CACHE_MAX_GB``: the disk tier's byte budget in GB
+    (0 = unbounded), enforced after a pull through ``Store.gc``."""
+    return env_int("DEMODEL_CACHE_MAX_GB", 0, minimum=0)

@@ -1,5 +1,5 @@
-"""Spans for the serving plane: the ``span`` / ``event`` surface of
-``demodel_tpu.utils.trace``.
+"""Spans for the serving and pull planes: the ``span`` / ``event`` /
+``wrap`` surface of ``demodel_tpu.utils.trace``.
 
 A span times one operation on the monotonic clock; spans nest through a
 ``contextvars`` ambient parent so :func:`event` lands on the innermost
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import contextvars
 import time
-from typing import Any
+from typing import Any, Callable
 
 from demodel_tpu_torch.utils.metrics import HUB, labeled
 
@@ -33,6 +33,9 @@ class Span:
         self.dur: float | None = None
         self._t0 = time.perf_counter()
         self._token: contextvars.Token["Span | None"] | None = None
+
+    def set_attr(self, key: str, value: Any) -> None:
+        self.attrs[key] = value
 
     def event(self, name: str, **attrs: Any) -> None:
         """Timestamped point event, offset seconds from span start."""
@@ -63,3 +66,16 @@ def event(name: str, **attrs: Any) -> None:
     cur = _current.get()
     if cur is not None:
         cur.event(name, **attrs)
+
+
+def wrap(fn: Callable[..., Any]) -> Callable[..., Any]:
+    """``fn`` run in the ambient context captured now, for a call that
+    will run on another thread (``contextvars`` does not cross
+    ``threading``): spans opened there nest under the caller's. Wrap
+    once per job — one context cannot be entered by two threads."""
+    ctx = contextvars.copy_context()
+
+    def run(*a: Any, **kw: Any) -> Any:
+        return ctx.run(fn, *a, **kw)
+
+    return run

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from demodel_tpu_torch.ops import flash_attention as tfa
+from demodel_tpu_torch.ops import flash_default as tfd
 from demodel_tpu_torch.ops.ring_attention import dense_attention
 
 jfa = importlib.import_module("demodel_tpu.ops.flash_attention")
@@ -187,6 +188,20 @@ def test_plan_main_path_bf16_goes_to_tensor_cores(S):
     assert plan.copy == (False, False, False)
 
 
+@pytest.mark.parametrize("S", MAIN_PATH_LENS + (2048,))
+def test_plan_main_path_f16_goes_to_tensor_cores(S):
+    """A pulled F16 Llama-2 checkpoint's prefill: the f16 instantiation of
+    the tensor-core kernel, the bf16 one's grid, block and shared memory,
+    one launch with no copies."""
+    q = torch.zeros(1, S, 32, 128, dtype=torch.float16)
+    plan = tfa.launch_plan(q, q, q, kv_len=S)
+    assert (plan.kernel, plan.code) == ("wgmma_f16", 2)
+    assert plan.grid == (-(-S // 64), 32, 1)
+    assert plan.threads == 160
+    assert plan.smem_bytes == 64 * 128 * 2 * 5 + 1024
+    assert plan.windows == "scalar" and plan.copy == (False, False, False)
+
+
 @pytest.mark.parametrize("D", [64, 128])
 def test_plan_f32_goes_to_cuda_cores(D):
     q = torch.zeros(2, 70, 8, D)
@@ -242,13 +257,19 @@ def test_plan_copies_only_what_tma_cannot_read():
 
 @pytest.mark.parametrize("q,k,err", [
     (_bf16(1, 8, 4, 32), _bf16(1, 8, 4, 32), ValueError),       # D=32
+    # float16 has its tensor-core kernel: planned, not refused
     (torch.zeros(1, 8, 4, 64, dtype=torch.float16),
-     torch.zeros(1, 8, 4, 64, dtype=torch.float16), TypeError),
+     torch.zeros(1, 8, 4, 64, dtype=torch.float16), None),
+    (torch.zeros(1, 8, 4, 64, dtype=torch.float64),
+     torch.zeros(1, 8, 4, 64, dtype=torch.float64), TypeError),
     (_bf16(1, 8, 4, 64), torch.zeros(1, 8, 4, 64), TypeError),  # mixed
     (_bf16(1, 8, 4, 64), torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16,
                                      device="meta"), ValueError),
-], ids=["head_dim_32", "float16", "mixed_dtypes", "two_devices"])
+], ids=["head_dim_32", "float16", "float64", "mixed_dtypes", "two_devices"])
 def test_plan_rejects_what_no_kernel_takes(q, k, err):
+    if err is None:
+        assert tfa.launch_plan(q, k, k).kernel == "wgmma_f16"
+        return
     with pytest.raises(err):
         tfa.launch_plan(q, k, k)
 
@@ -294,3 +315,73 @@ def test_launch_args_match_the_c_struct():
     assert [c for c, _ in fields] == ["long long"] * (len(fields) - 1) + [
         "double"]
     assert tfa._ARGS.size == 8 * len(fields)
+
+
+# ------------------------------------------------------------- routing
+#
+# The rule a model asks before the call (ops/flash_default.py): unset,
+# every attention on CUDA tensors goes to the kernel, whatever its dtype
+# and head dim, and what no kernel takes raises in launch_plan; CPU
+# tensors take the einsum path. DEMODEL_FLASH_ATTN is the caller's
+# explicit choice.
+
+
+@pytest.mark.parametrize("device,want", [("cuda", True), ("cpu", False)])
+def test_routing_default_is_the_device(monkeypatch, device, want):
+    monkeypatch.delenv("DEMODEL_FLASH_ATTN", raising=False)
+    assert tfd.use_flash_attention(device) is want
+
+
+@pytest.mark.parametrize("dtype,D,err", [
+    (torch.float16, 8, ValueError),       # LlamaConfig.tiny()
+    (torch.float32, 32, ValueError),
+    (torch.bfloat16, 96, ValueError),
+    (torch.float64, 128, TypeError),
+], ids=["f16_d8", "f32_d32", "bf16_d96", "f64_d128"])
+def test_cuda_shape_without_kernel_raises_not_einsum(monkeypatch, dtype, D,
+                                                     err):
+    """Unset, a CUDA shape that no kernel takes still routes to the
+    kernel, whose plan refuses it: nothing on the card drops to einsum
+    unless the caller says ``DEMODEL_FLASH_ATTN=0``."""
+    monkeypatch.delenv("DEMODEL_FLASH_ATTN", raising=False)
+    assert tfd.use_flash_attention("cuda")
+    q = torch.empty(1, 4, 8, D, dtype=dtype, device="meta")
+    with pytest.raises(err):
+        tfa.launch_plan(q, q[:, :, :2], q[:, :, :2])
+    monkeypatch.setenv("DEMODEL_FLASH_ATTN", "0")
+    assert not tfd.use_flash_attention("cuda")
+    monkeypatch.setenv("DEMODEL_FLASH_ATTN", "1")
+    assert tfd.use_flash_attention("cpu")
+
+
+@pytest.mark.parametrize("env,want_calls", [(None, 2), ("0", 0)],
+                         ids=["default", "explicit_einsum"])
+def test_llama_asks_the_rule_per_layer(monkeypatch, env, want_calls):
+    """The model asks the rule with its tensors' device at every layer:
+    as if they were on CUDA, the tiny config's head dim of 8 reaches the
+    kernel wrapper (which on the card raises); ``DEMODEL_FLASH_ATTN=0``
+    keeps it on einsum."""
+    from demodel_tpu_torch.models import common as tcommon
+    from demodel_tpu_torch.models import llama as tl
+
+    if env is None:
+        monkeypatch.delenv("DEMODEL_FLASH_ATTN", raising=False)
+    else:
+        monkeypatch.setenv("DEMODEL_FLASH_ATTN", env)
+    asked, called = [], []
+
+    def rule(device):
+        asked.append(torch.device(device).type)
+        return tfd.use_flash_attention("cuda")
+
+    def kernel(*a, **kw):
+        called.append(1)
+        return tfa.flash_attention(*a, **kw)
+
+    monkeypatch.setattr(tcommon, "_p", rule)
+    monkeypatch.setattr(tl, "flash_attention", kernel)
+    cfg = tl.LlamaConfig.tiny()
+    params = tl.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    tl.step_prefill(params, torch.zeros(1, 5, dtype=torch.long), cfg)
+    assert asked == ["cpu"] * cfg.num_hidden_layers
+    assert len(called) == want_calls

@@ -1,9 +1,12 @@
 """Package rules of the port (``demodel_tpu_torch``), checked on the CPU.
 
-- It imports neither jax nor the JAX package: not at run time (a fresh
-  interpreter imports every module and inspects ``sys.modules``) and not
-  in its source (an AST scan of every module and of ``chip_smoke.py``).
-  The port's own name starts with ``demodel_tpu``, so both checks match
+- It imports neither jax nor the JAX package, nor ``requests``,
+  ``cryptography`` or the repo's ``tests``: not at run time (a fresh
+  interpreter imports every module and ``chip_smoke`` and inspects
+  ``sys.modules``) and not in its source (an AST scan of every module
+  and of ``chip_smoke.py``, imports inside functions included, accepts
+  the standard library, torch, numpy, triton and the port itself only).
+  The port's own name starts with ``demodel_tpu``, so the checks match
   whole module names.
 - Entry points default to CUDA and raise where there is none; nothing
   quietly drops to the CPU.
@@ -28,6 +31,7 @@ import torch
 
 from demodel_tpu_torch import serve
 from demodel_tpu_torch import sink
+from demodel_tpu_torch.config import ProxyConfig
 from demodel_tpu_torch.formats import gguf as tgguf
 from demodel_tpu_torch.models import convert, hf_loader, llama
 from demodel_tpu_torch.ops import dequant as tdq
@@ -39,7 +43,10 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "demodel_tpu_torch"
 MODULES = sorted(p for p in PKG.rglob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "demodel_tpu")
+FORBIDDEN = ("jax", "jaxlib", "demodel_tpu", "requests", "cryptography",
+             "tests")
+#: what the port and chip_smoke.py may import besides the standard library
+ALLOWED = ("torch", "numpy", "triton", "demodel_tpu_torch")
 
 
 def _forbidden(name: str) -> bool:
@@ -61,9 +68,10 @@ def test_forbidden_names_match_whole_modules():
 
 
 def test_runtime_imports_leave_jax_unloaded():
-    """Every port module imported in a fresh interpreter: no jax, no
-    ``demodel_tpu`` / ``demodel_tpu.*`` in ``sys.modules``."""
-    names = [_module_name(p) for p in MODULES]
+    """Every port module and ``chip_smoke`` imported in a fresh
+    interpreter: no jax, no ``demodel_tpu`` / ``demodel_tpu.*``, no
+    ``requests``, ``cryptography`` or ``tests`` in ``sys.modules``."""
+    names = [_module_name(p) for p in MODULES] + ["chip_smoke"]
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}:\n"
@@ -102,10 +110,34 @@ def test_source_imports_no_jax(path):
     assert bad == [], f"{path.name} imports {bad}"
 
 
+def _allowed(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in sys.stdlib_module_names or top in ALLOWED
+
+
+def test_allowed_names_match_whole_modules():
+    assert _allowed("os.path") and _allowed("http.client")
+    assert _allowed("torch.profiler") and _allowed("demodel_tpu_torch.store")
+    for bad in ("requests", "cryptography.x509", "jax", "demodel_tpu.store",
+                "tests.fake_registries", "fake_registries", "torchvision"):
+        assert not _allowed(bad), bad
+
+
+@pytest.mark.parametrize(
+    "path", MODULES + [REPO / "chip_smoke.py"],
+    ids=[str(p.relative_to(REPO)) for p in MODULES] + ["chip_smoke.py"])
+def test_source_imports_only_stdlib_torch_numpy_triton(path):
+    """Every import in the source, at any depth, is of the standard
+    library, torch, numpy, triton or the port: nothing that the machine
+    with the card may lack."""
+    bad = [n for n in _imports(path) if not _allowed(n)]
+    assert bad == [], f"{path.name} imports {bad}"
+
+
 @pytest.mark.parametrize("entry", [
     "init_params", "init_cache", "params_from_numpy", "load_llama_params",
     "GenEngine", "boot", "make_mesh", "deliver_gguf", "deliver_safetensors",
-    "dequant_gguf_tensor"])
+    "dequant_gguf_tensor", "load_model"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default resolves")
@@ -127,6 +159,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         "dequant_gguf_tensor": lambda: tdq.dequant_gguf_tensor(
             tgguf.GGUFTensor("w", tgguf.GGML_F32, (4,), 0, 16),
             np.ones(4, np.float32)),
+        "load_model": lambda: serve.load_model(
+            "org/m", ProxyConfig(cache_dir="unused", data_dir="unused")),
     }
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         calls[entry]()
