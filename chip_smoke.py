@@ -21,12 +21,14 @@ Phases, each printing one line:
    card at every main-path prompt length (17, 64, 96, 128, 512), at
    2048, and in every masking case (GQA, ragged decode, a kv_len-0 row,
    Sq > kv_len, non-causal, no keys at all, D=64, strided and misaligned
-   k/v views, f32, return_lse), f16 at 17, 512 and 2048, with the call
-   time (CUDA events), the device time per call (torch.profiler, or
-   the call time where every trace lost the work) of the kernel and of
-   SDPA, the plain version's time and the roofline bound;
-   then a ``floors`` line that sets the redesign's targets beside what
-   was measured;
+   k/v views, f32, return_lse), f16 at 17, 512 and 2048, the CUDA-core
+   kernel at head dims 8, 32, 80, 96 and 256 (S=512, H=32, G=8) and at
+   the tiny config's prefill shape, each in f32, bf16 and f16, with the
+   call time (CUDA events), the device time per call (torch.profiler,
+   or the call time where every trace lost the work) of the kernel and
+   of SDPA, the plain version's time and the roofline bound; then a
+   ``floors`` line that sets the redesign's targets beside what was
+   measured;
 4. dequant — each GGUF dequant kernel (csrc/dequant.cu: Q8_0, Q4_0 and
    the five K-quants) against its plain PyTorch version on the card at
    the ffn_gate shape 11008×4096 in bf16 and f32, and at 1, 3, 257 and 0
@@ -46,7 +48,17 @@ Phases, each printing one line:
    at 2 layers; launches per format counted over each delivery, every
    value finite, layer 0, the last layer, token_embd and output held
    against the plain version, one tensor against ``REF_DEQUANT``;
-8. pull — a cold pull from a HuggingFace-style registry served by this
+8. ollama — an Ollama registry (registry-v2 on stdlib ``http.server``,
+   127.0.0.1) serves the gguf phase's 32-layer Q4_K_M file (4.08 GB)
+   and its 2-layer Q4_0 and Q8_0 files as three models, each with a
+   config blob, a license and a params layer; ``delivery.pull_to_hbm(
+   source="ollama")`` pulls each into a store in a temporary directory
+   and streams the GGUF layer through the sink onto the card, dequantized
+   by K2–K4: the stored blob's sha256 is its digest, every placed tensor
+   equals ``deliver_gguf`` of the same bytes from the host buffer, one
+   tensor per ggml type is held against its plain dequant, and the
+   dequant launches per format are those the file needs;
+9. pull — a cold pull from a HuggingFace-style registry served by this
    script (stdlib ``http.server`` on 127.0.0.1: the Hub API, resolve
    with its 302 to a CDN path, Range) of an F16 Llama-2-7B-width
    checkpoint cut to 8 layers (3.76 GB of seeded random weights in two
@@ -55,10 +67,18 @@ Phases, each printing one line:
    card, three requests (prompts of 17, 128 and 512 tokens) over HTTP
    with all K1 launches on the f16 tensor-core kernel, first tokens the
    argmax of their kernel-path prefill logits, logits against the plain
-   path, the manifest record in the store; then ``LlamaConfig.tiny()``
-   (head dim 8, which no kernel takes): refused by K1's plan by default,
-   served on the einsum path with no K1 launch under the caller's
-   explicit ``DEMODEL_FLASH_ATTN=0``.
+   path, the manifest record in the store;
+10. peer — the pull phase's store served by the port's ``ProxyServer``
+   (``no_mitm``, ``/peer/*`` from the native library) on 127.0.0.1, and
+   ``serve.load_model(peers=[it])`` into a fresh store with the same Hub
+   as endpoint: no CDN or blob request reaches the Hub, every file comes
+   from the peer, every placed tensor equals the pull phase's, the
+   17-token prompt's tokens equal the pull phase's, K1 launches all on
+   ``wgmma_f16``; then the gossip thread and the proxy stop;
+11. tiny — ``LlamaConfig.tiny()`` (head dim 8) in f32, bf16 and f16:
+   served through K1's CUDA-core kernel by default, engine tokens equal
+   to ``generate``, launches on ``simt_*``; under the caller's explicit
+   ``DEMODEL_FLASH_ATTN=0`` served on the einsum path with no K1 launch.
 
 Then the card line from nvidia-smi, a JSON line with the kernels, and
 last ``{"ok": true, "device": {...}}``. Any failed phase raises (exit
@@ -83,8 +103,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 #: order only
 BF16_TOL = 2e-2
 F32_TOL = 1e-4
-#: the same for f16 (10-bit mantissa: the bf16 bound holds with room)
-TOL = {"bfloat16": BF16_TOL, "float16": BF16_TOL, "float32": F32_TOL}
+#: the same for f16, its own: the kernel rounding P to f16 reads at most
+#: 2^-9 (one f16 ulp at |o| in [2, 4)) on these seeded inputs, while the
+#: same kernel rounding P to bf16 reads 0.0022 to 0.0039, so 2e-3 tells
+#: the two apart
+F16_TOL = 2e-3
+TOL = {"bfloat16": BF16_TOL, "float16": F16_TOL, "float32": F32_TOL}
 #: 7B prefill logits, kernel path vs plain path (dense einsum attention in
 #: bf16), relative L2 error: bf16 scores in the plain path round to 8 bits
 #: before the softmax and the difference compounds over 32 layers
@@ -177,12 +201,12 @@ def _hgmma_counts(lib) -> dict[str, int]:
             counts[fn] += 1
     named = {}
     for fn, n in counts.items():
-        kind = ("wgmma_f16" if "flash_fwd_wgmmaI6__half" in fn else
-                "wgmma_bf16" if "flash_fwd_wgmma" in fn else
-                "simt_f32" if "flash_fwd_kernel" in fn else None)
-        dim = "64" if "Li64E" in fn else "128" if "Li128E" in fn else "?"
-        if kind:
-            named[f"{kind}_d{dim}"] = n
+        m = re.search(r"flash_fwd_(wgmma|kernel)I(6__half|13__nv_bfloat16|f)"
+                      r"Li(\d+)E", fn)
+        if m:
+            kind = "wgmma" if m[1] == "wgmma" else "simt"
+            dtype = {"6__half": "f16", "f": "f32"}.get(m[2], "bf16")
+            named[f"{kind}_{dtype}_d{m[3]}"] = n
     return named
 
 
@@ -261,7 +285,20 @@ CASES = [
     _case("f16_prefill_s17", 1, 17, 17, 32, 32, 128, "float16"),
     _case("f16_prefill_s512", 1, 512, 512, 32, 32, 128, "float16", lse=True),
     _case("f16_prefill_s2048", 1, 2048, 2048, 32, 32, 128, "float16"),
+    # head dims without a tensor-core instantiation: the CUDA-core kernel
+    # in each type (B=1, S=512, H=32, G=8, causal)
+    *(_case(f"d{D}_{dt}", 1, 512, 512, 32, 8, D, dt)
+      for D in (8, 32, 80, 96, 256)
+      for dt in ("float32", "bfloat16", "float16")),
+    # LlamaConfig.tiny()'s prefill in the tiny phase (12 tokens, 8 heads
+    # over 2, head dim 8)
+    *(_case(f"tiny_prefill_{dt}", 1, 12, 12, 8, 2, 8, dt)
+      for dt in ("float32", "bfloat16", "float16")),
 ]
+#: the CUDA-core kernel's rows of the kernels line: the tiny phase's
+#: shape, then head dims 80 and 256 at S=512
+SIMT_ROWS = {"float32": "simt_f32", "bfloat16": "simt_bf16",
+             "float16": "simt_f16"}
 #: device-time attribution: K1's own kernels, and everything else
 K1_KERNELS = ("flash_fwd_wgmma", "flash_fwd_kernel")
 
@@ -402,8 +439,8 @@ def _kernel_case(c) -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
-def phase_kernel() -> tuple[dict, dict]:
-    """Every case; returns the bf16 and the f16 rows at S=512."""
+def phase_kernel() -> dict[str, dict]:
+    """Every case; returns the rows by case name."""
     rows = {c["name"]: _kernel_case(c) for c in CASES}
     for r in rows.values():
         _say("kernel", **r)
@@ -425,7 +462,7 @@ def phase_kernel() -> tuple[dict, dict]:
          k1_over_sdpa_call={n: rows[f"prefill_s{n}"]["ms"]
                             / rows[f"prefill_s{n}"]["library_ms"]
                             for n in (17, 64, 96, 128, 512, 2048)})
-    return s512, rows["f16_prefill_s512"]
+    return rows
 
 
 # --------------------------------------------------------------- phase 4
@@ -889,6 +926,8 @@ def _gguf_file(kind: str, n_layers: int, seed: int) -> dict:
     t0 = time.perf_counter()
     buf, specs, data_len = _build_gguf(kind, n_layers, seed)
     build_s = time.perf_counter() - t0
+    if kind in OLLAMA_KINDS:  # the ollama phase serves the same bytes
+        _GGUF_BUILT[kind] = (buf, specs)
     index = gguf.parse(buf)
     want_launches = {f: 0 for f in DEQUANT_FORMATS}
     for _, _, fmt in specs:
@@ -991,6 +1030,11 @@ def _gguf_file(kind: str, n_layers: int, seed: int) -> dict:
 #: default), then each other format at 2 layers, full width
 GGUF_FILES = (("q4_k_m", 32), ("q4_0", 2), ("q8_0", 2), ("q2_k", 2),
               ("q3_k", 2), ("q5_k", 2))
+#: the gguf phase's files the ollama phase serves, by Ollama model name
+OLLAMA_KINDS = {"q4_k_m": "llama:7b-q4_K_M", "q4_0": "llama:7b-q4_0-2l",
+                "q8_0": "llama:7b-q8_0-2l"}
+#: (buffer, specs) of those files, as the gguf phase built them
+_GGUF_BUILT: dict[str, tuple] = {}
 
 
 def phase_gguf() -> dict[str, int]:
@@ -1002,6 +1046,241 @@ def phase_gguf() -> dict[str, int]:
         for fmt, n in row["launches"].items():
             total[fmt] += n
         _say("gguf", **row)
+    return total
+
+
+# --------------------------------------------------------------- ollama
+
+OLLAMA_MODEL_MEDIA = "application/vnd.ollama.image.model"
+
+
+def _ollama_handler(models: dict[str, dict], blobs: dict[str, object]):
+    """A registry-v2 over ``models`` ({"repo:tag": manifest}) and
+    ``blobs`` ({digest: bytes-like}): manifests, blobs with HEAD and
+    Range. ``Registry.counts`` counts blob GETs by digest."""
+    counts: dict[str, int] = {}
+    lock = threading.Lock()
+
+    class Registry(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        request_counts = counts
+
+        def log_message(self, *a):
+            pass
+
+        def _send(self, status, body=b"", ctype="application/json",
+                  extra=None):
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("Docker-Distribution-Api-Version",
+                             "registry/2.0")
+            for k, v in (extra or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            if self.command != "HEAD":
+                self.wfile.write(body)
+
+        def do_HEAD(self):
+            self.do_GET()
+
+        def do_GET(self):
+            m = re.match(r"^/v2/(.+?)/manifests/([^/]+)$", self.path)
+            if m:
+                doc = models.get(f"{m[1]}:{m[2]}")
+                if doc is None:
+                    return self._send(404, b'{"errors":[{"code":'
+                                      b'"MANIFEST_UNKNOWN"}]}')
+                return self._send(200, json.dumps(doc).encode(),
+                                  "application/vnd.docker.distribution."
+                                  "manifest.v2+json")
+            m = re.match(r"^/v2/(.+?)/blobs/(sha256:[0-9a-f]{64})$",
+                         self.path)
+            if m:
+                body = blobs.get(m[2])
+                if body is None:
+                    return self._send(404, b'{"errors":[{"code":'
+                                      b'"BLOB_UNKNOWN"}]}')
+                if self.command == "GET":
+                    with lock:
+                        counts[m[2]] = counts.get(m[2], 0) + 1
+                body = memoryview(body).cast("B")
+                rng = self.headers.get("Range", "")
+                if rng.startswith("bytes="):
+                    a, _, b = rng[6:].partition("-")
+                    start, end = int(a), int(b) if b else len(body) - 1
+                    part = body[start:end + 1]
+                    return self._send(206, part, "application/octet-stream", {
+                        "Content-Range": f"bytes {start}-"
+                        f"{start + len(part) - 1}/{len(body)}",
+                        "Accept-Ranges": "bytes"})
+                return self._send(200, body, "application/octet-stream",
+                                  {"Accept-Ranges": "bytes"})
+            self._send(404, b"{}")
+
+    return Registry
+
+
+def _ollama_manifest(model_blob, side: dict[str, bytes]) -> tuple[dict, str]:
+    """A registry-v2 manifest (schemaVersion 2, Ollama media types) over
+    a GGUF model layer and the side blobs; returns it with the model
+    layer's digest."""
+    import hashlib
+
+    def desc(media, body, digest=None):
+        digest = digest or "sha256:" + hashlib.sha256(body).hexdigest()
+        return {"mediaType": media, "digest": digest, "size": len(body)}
+
+    model = desc(OLLAMA_MODEL_MEDIA, model_blob)
+    return {
+        "schemaVersion": 2,
+        "mediaType": "application/vnd.docker.distribution.manifest.v2+json",
+        "config": desc("application/vnd.docker.container.image.v1+json",
+                       side["config"]),
+        "layers": [model,
+                   desc("application/vnd.ollama.image.license",
+                        side["license"]),
+                   desc("application/vnd.ollama.image.params",
+                        side["params"])],
+    }, model["digest"]
+
+
+def _ollama_pull(cfg, url: str, kind: str, name: str) -> dict:
+    """One Ollama pull onto the card, held against ``deliver_gguf`` of the
+    gguf phase's buffer of ``kind``; its row."""
+    import hashlib
+
+    import torch
+
+    from demodel_tpu_torch import delivery
+    from demodel_tpu_torch.formats import gguf
+    from demodel_tpu_torch.ops import dequant as dq
+    from demodel_tpu_torch.sink import deliver_gguf
+
+    buf, specs = _GGUF_BUILT[kind]
+    want_launches = {f: 0 for f in DEQUANT_FORMATS}
+    for _, _, fmt in specs:
+        if fmt != "f32":
+            want_launches[fmt] += 1
+    deliver0, split0 = _span_s("sink-deliver"), _split_s()
+    for fmt in dq.launches:
+        dq.launches[fmt] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report, placed = delivery.pull_to_hbm(name, cfg, source="ollama",
+                                          endpoint=url)
+    wall_s = time.perf_counter() - t0
+    launches = dict(dq.launches)
+    deliver_s = _span_s("sink-deliver") - deliver0
+    split_s = _split_s() - split0
+    if launches != want_launches:
+        raise AssertionError(f"ollama {name}: dequant launches {launches}, "
+                             f"expected {want_launches}")
+    layer = next(f for f in report["files"]
+                 if f["media_type"] == OLLAMA_MODEL_MEDIA)
+    store = delivery.open_store(cfg)
+    try:
+        sha = hashlib.sha256()
+        for chunk in store.stream(layer["key"], 64 << 20):
+            sha.update(chunk)
+        stored = {f["name"]: store.meta(f["key"]).get("sha256")
+                  for f in report["files"][1:]}
+    finally:
+        store.close()
+    if ("sha256:" + sha.hexdigest() != layer["name"]
+            or any("sha256:" + v != k for k, v in stored.items())):
+        raise AssertionError(f"ollama {name}: stored blob sha256 "
+                             f"{sha.hexdigest()} vs digest {layer['name']}")
+    if set(placed.arrays) != {n for n, _, _ in specs}:
+        raise AssertionError(f"ollama {name}: placed {len(placed.arrays)} "
+                             f"tensors, expected {len(specs)}")
+
+    # every tensor against deliver_gguf of the host buffer (not counted)
+    ref = deliver_gguf(None, name, out_dtype=torch.bfloat16, buffer=buf)
+    unequal = [n for n, a in placed.arrays.items()
+               if not (a.dtype == torch.bfloat16 and a.device.type == "cuda"
+                       and torch.equal(a, ref.arrays[n]))]
+    del ref
+    if unequal:
+        raise AssertionError(f"ollama {name}: placed tensors differ from "
+                             f"deliver_gguf of the buffer: {unequal[:5]}")
+    # one tensor per ggml type against its plain dequant
+    index = gguf.parse(buf)
+    held = {}
+    for tname, _, fmt in specs:
+        if fmt in held:
+            continue
+        t = index.tensors[tname]
+        decoded = gguf.decode_raw(t, memoryview(buf)[t.start:t.start
+                                                     + t.nbytes])
+        if fmt == "f32":
+            want = dq.to_device(decoded, "cuda").to(torch.bfloat16)
+            if not torch.equal(placed.arrays[tname], want):
+                raise AssertionError(f"ollama {name}: {tname} f32 differs")
+            held[fmt] = [tname, 0.0]
+        else:
+            parts = [dq.to_device(x, "cuda") for x in decoded]
+            held[fmt] = [tname, _held(fmt, placed.arrays[tname],
+                                      _plain(fmt)(*parts, torch.bfloat16),
+                                      "bfloat16")]
+    n_tensors = len(placed.arrays)
+    del placed
+    torch.cuda.empty_cache()
+    return {"model": name, "file": kind, "blob_bytes": layer["size"],
+            "pull_s": report["secs"], "pull_and_place_s":
+            report["tpu_sink"]["secs"], "wall_s": wall_s,
+            "pull_GBps": layer["size"] / report["secs"] / 1e9,
+            "sink_deliver_s": deliver_s, "host_split_s": split_s,
+            "tensors_equal": n_tensors,
+            "launches": {k: v for k, v in launches.items() if v},
+            "held_vs_plain": held, "files": len(report["files"])}
+
+
+def phase_ollama() -> dict[str, int]:
+    """Ollama pulls of the gguf phase's Q4_K_M, Q4_0 and Q8_0 files
+    through an in-script registry-v2 onto the card; returns the dequant
+    launches per format over the three pulls."""
+    import shutil
+    import tempfile
+
+    from demodel_tpu_torch.config import ProxyConfig
+
+    side = {"config": json.dumps({"model_format": "gguf",
+                                  "model_family": "llama",
+                                  "file_type": "seeded"}).encode(),
+            "license": b"LLAMA 2 COMMUNITY LICENSE (test)",
+            "params": json.dumps({"stop": ["</s>"]}).encode()}
+    models, blobs = {}, {}
+    t0 = time.perf_counter()
+    for kind, name in OLLAMA_KINDS.items():
+        buf = _GGUF_BUILT[kind][0]
+        manifest, digest = _ollama_manifest(buf, side)
+        repo, _, tag = name.partition(":")
+        models[f"library/{repo}:{tag}"] = manifest
+        blobs[digest] = buf
+        blobs.update({d["digest"]: side[k] for k, d in zip(
+            ("config", "license", "params"),
+            (manifest["config"], *manifest["layers"][1:]))})
+    digest_s = time.perf_counter() - t0
+    reg = ThreadingHTTPServer(("127.0.0.1", 0), _ollama_handler(models,
+                                                                blobs))
+    threading.Thread(target=reg.serve_forever, daemon=True).start()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ollama-")
+    cfg = ProxyConfig(cache_dir=os.path.join(tmp, "cache"),
+                      data_dir=os.path.join(tmp, "data"))
+    total = {f: 0 for f in DEQUANT_FORMATS}
+    try:
+        for kind, name in OLLAMA_KINDS.items():
+            row = _ollama_pull(cfg, f"http://127.0.0.1:{reg.server_port}",
+                               kind, name)
+            for fmt, n in row["launches"].items():
+                total[fmt] += n
+            _say("ollama", **row, digest_s=round(digest_s, 3))
+    finally:
+        reg.shutdown()
+        reg.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    _GGUF_BUILT.clear()
     return total
 
 
@@ -1077,19 +1356,27 @@ def _hf_handler(repos: dict[str, dict[str, bytes]]):
     """A HuggingFace Hub over ``repos`` ({repo: {file: bytes}}): the API
     route, ``/resolve`` with a 302 to a ``/cdn`` path for LFS files
     (``X-Linked-Etag``, ``X-Linked-Size``, ``X-Repo-Commit``), small
-    files directly, and Range on the CDN."""
+    files directly, and Range on the CDN. ``Hub.counts`` counts requests:
+    ``api``, ``head``, and the GETs that serve or lead to file bytes,
+    ``resolve`` and ``cdn``."""
     import hashlib
 
     digests = {r: {f: hashlib.sha256(b).hexdigest() for f, b in fs.items()}
                for r, fs in repos.items()}
     by_digest = {r: {sha: f for f, sha in m.items()}
                  for r, m in digests.items()}
+    counts = {"api": 0, "head": 0, "resolve": 0, "cdn": 0}
+    lock = threading.Lock()
 
     class Hub(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
         def log_message(self, *a):
             pass
+
+        def _count(self, what: str) -> None:
+            with lock:
+                counts["head" if self.command == "HEAD" else what] += 1
 
         def _send(self, status, body=b"", ctype="application/json",
                   extra=None):
@@ -1109,6 +1396,7 @@ def _hf_handler(repos: dict[str, dict[str, bytes]]):
             path = self.path.split("?", 1)[0]
             m = re.match(r"^/api/models/(.+?)/revision/([^/]+)$", path)
             if m:
+                self._count("api")
                 if m[1] not in repos:
                     return self._send(404, b'{"error":"RepoNotFound"}')
                 return self._send(200, json.dumps({
@@ -1117,6 +1405,7 @@ def _hf_handler(repos: dict[str, dict[str, bytes]]):
                 }).encode())
             m = re.match(r"^/(.+?)/resolve/([^/]+)/(.+)$", path)
             if m:
+                self._count("resolve")
                 repo, fname = m[1], m[3]
                 body = repos.get(repo, {}).get(fname)
                 if body is None:
@@ -1135,6 +1424,7 @@ def _hf_handler(repos: dict[str, dict[str, bytes]]):
                     "Accept-Ranges": "bytes"})
             m = re.match(r"^/cdn/(.+?)/([0-9a-f]{64})$", path)
             if m:
+                self._count("cdn")
                 fname = by_digest.get(m[1], {}).get(m[2])
                 if fname is None:
                     return self._send(404)
@@ -1151,6 +1441,7 @@ def _hf_handler(repos: dict[str, dict[str, bytes]]):
                     "ETag": f'"{m[2]}"', "Accept-Ranges": "bytes"})
             self._send(404, b'{"error":"not found"}')
 
+    Hub.counts = counts
     return Hub
 
 
@@ -1176,177 +1467,272 @@ def _generate_http(url: str, prompt: list[int], n: int) -> list[int]:
     return json.loads(body)["tokens"]
 
 
-def phase_pull() -> int:
-    """Cold pull → placement → build → serve of the 8-layer F16
-    checkpoint; then the tiny config (:func:`_tiny_on_einsum`). Returns
-    the K1 launches of the main path (all on ``wgmma_f16``)."""
-    import shutil
-    import tempfile
+class _HubRig:
+    """The pull and peer phases' world: the 8-layer F16 checkpoint (its
+    sources on the card), the in-script Hub serving it, and a temporary
+    directory; :meth:`close` stops the Hub and removes the directory."""
 
-    import numpy as np
+    def __init__(self):
+        import tempfile
+
+        t0 = time.perf_counter()
+        self.src, self.files = _hf_checkpoint(PULL_LAYERS, seed=7)
+        self.build_s = time.perf_counter() - t0
+        self.nbytes = sum(len(b) for b in self.files.values())
+        handler = _hf_handler({PULL_MODEL: self.files})
+        self.counts = handler.counts
+        self.hub = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+        threading.Thread(target=self.hub.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.hub.server_port}"
+        self.tmp = tempfile.mkdtemp(prefix="chip-smoke-pull-")
+
+    def config(self, name: str):
+        from demodel_tpu_torch.config import ProxyConfig
+
+        return ProxyConfig(host="127.0.0.1", port=0, no_mitm=True,
+                           cache_dir=os.path.join(self.tmp, name),
+                           data_dir=os.path.join(self.tmp, "data"))
+
+    def close(self) -> None:
+        import shutil
+
+        self.hub.shutdown()
+        self.hub.server_close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def _placed_by_source_name(params: dict) -> dict:
+    """The served model's tensors under their checkpoint names
+    (``transformers`` layout: projections ``[out, in]``)."""
+    placed = {"model.embed_tokens.weight": params["embed"],
+              "model.norm.weight": params["final_norm"],
+              "lm_head.weight": params["lm_head"].T}
+    for i, layer in enumerate(params["layers"]):
+        p = f"model.layers.{i}."
+        placed[p + "input_layernorm.weight"] = layer["attn_norm"]
+        placed[p + "post_attention_layernorm.weight"] = layer["mlp_norm"]
+        for k in ("q", "k", "v", "o"):
+            placed[p + f"self_attn.{k}_proj.weight"] = layer[f"{k}_proj"].T
+        for k in ("gate", "up", "down"):
+            placed[p + f"mlp.{k}_proj.weight"] = layer[f"{k}_proj"].T
+    return placed
+
+
+def _unequal(placed: dict, want: dict) -> list[str]:
     import torch
 
-    from demodel_tpu_torch import delivery, serve
-    from demodel_tpu_torch.config import ProxyConfig
-    from demodel_tpu_torch.models import llama
+    if sorted(placed) != sorted(want):
+        return sorted(set(placed) ^ set(want))
+    return [n for n, t in want.items()
+            if not (placed[n].dtype == torch.float16
+                    and placed[n].device.type == "cuda"
+                    and torch.equal(placed[n], t))]
+
+
+def _load_and_serve(rig: _HubRig, cfg, prompts, **load_kw):
+    """``serve.load_model`` of the rig's checkpoint into ``cfg``'s store
+    and one HTTP request per prompt; (load seconds, tokens, K1 launches
+    by kernel, the model's params, its config). The K1 counts cover the
+    load and the requests only."""
+    import torch
+
+    from demodel_tpu_torch import serve
     from demodel_tpu_torch.ops import flash_attention as fa
     from demodel_tpu_torch.serve import http
 
-    t0 = time.perf_counter()
-    src, files = _hf_checkpoint(PULL_LAYERS, seed=7)
-    build_s = time.perf_counter() - t0
-    nbytes = sum(len(b) for b in files.values())
-    hub = ThreadingHTTPServer(("127.0.0.1", 0), _hf_handler(
-        {PULL_MODEL: files}))
-    threading.Thread(target=hub.serve_forever, daemon=True).start()
-    tmp = tempfile.mkdtemp(prefix="chip-smoke-pull-")
-    cfg = ProxyConfig(cache_dir=os.path.join(tmp, "cache"),
-                      data_dir=os.path.join(tmp, "data"))
-    pgen = torch.Generator().manual_seed(8)
-    prompts = [_prompt(pgen, n, VOCAB) for n in PULL_PROMPTS]
     engine = server = None
     try:
-        spans = ("registry-fetch", "sink-deliver", "serve.load-model")
-        before = {k: _span_s(k) for k in spans}
         torch.cuda.synchronize()
         _reset_k1()  # count the main path's launches only
         t0 = time.perf_counter()
         engine = serve.load_model(
-            PULL_MODEL, cfg, endpoint=f"http://127.0.0.1:{hub.server_port}",
-            device="cuda", kv_mb=1024, max_new_tokens=PULL_NEW, max_batch=4,
-            queue_limit=8)
+            PULL_MODEL, cfg, endpoint=rig.url, device="cuda", kv_mb=1024,
+            max_new_tokens=PULL_NEW, max_batch=4, queue_limit=8, **load_kw)
         load_s = time.perf_counter() - t0
         server = http.start()
         tokens = [_generate_http(f"{server.url}/generate", p, PULL_NEW)
                   for p in prompts]
-        launches = fa.launches
         by_kernel = dict(fa.launches_by_kernel)
-        span_s = {k: _span_s(k) - before[k] for k in spans}
-        params, mcfg = engine.params, engine.cfg
-        engine.stop()
-        server.stop()
-        serve.install(None)
-        engine = server = None
-
-        # every placed tensor against its source, on the card
-        placed = {"model.embed_tokens.weight": params["embed"],
-                  "model.norm.weight": params["final_norm"],
-                  "lm_head.weight": params["lm_head"].T}
-        for i, layer in enumerate(params["layers"]):
-            p = f"model.layers.{i}."
-            placed[p + "input_layernorm.weight"] = layer["attn_norm"]
-            placed[p + "post_attention_layernorm.weight"] = layer["mlp_norm"]
-            for k in ("q", "k", "v", "o"):
-                placed[p + f"self_attn.{k}_proj.weight"] = \
-                    layer[f"{k}_proj"].T
-            for k in ("gate", "up", "down"):
-                placed[p + f"mlp.{k}_proj.weight"] = layer[f"{k}_proj"].T
-        unequal = [n for n, t in src.items()
-                   if not (placed[n].dtype == torch.float16
-                           and placed[n].device.type == "cuda"
-                           and torch.equal(placed[n], t))]
-        if sorted(placed) != sorted(src) or unequal:
-            raise AssertionError(f"pull: placed tensors differ from their "
-                                 f"sources: {unequal[:5]}")
-        if mcfg.dtype != "float16" or mcfg.num_hidden_layers != PULL_LAYERS:
-            raise AssertionError(f"pull: built {mcfg}")
-        want = PULL_LAYERS * len(prompts)
-        if launches != want or by_kernel["wgmma_f16"] != want:
-            raise AssertionError(f"pull: K1 launches {by_kernel}, expected "
-                                 f"{want} on wgmma_f16")
-
-        # prefill logits, kernel path vs plain path (comparison only)
-        rel_errs, first = [], []
-        with torch.inference_mode():
-            for p in prompts:
-                toks = torch.tensor([p], device="cuda")
-                got = llama.step_prefill(params, toks, mcfg)[0][0].float()
-                os.environ["DEMODEL_FLASH_ATTN"] = "0"
-                try:
-                    ref = llama.step_prefill(params, toks, mcfg)[0][0].float()
-                finally:
-                    del os.environ["DEMODEL_FLASH_ATTN"]
-                rel_errs.append(((got - ref).norm() / ref.norm()).item())
-                first.append(int(torch.argmax(got).item()))
-        if max(rel_errs) > LOGITS_REL_TOL or not all(map(np.isfinite,
-                                                         rel_errs)):
-            raise AssertionError(f"pull: prefill logits kernel vs plain rel "
-                                 f"errors {rel_errs} > {LOGITS_REL_TOL}")
-        for p, toks, f in zip(prompts, tokens, first):
-            if len(toks) != PULL_NEW or toks[0] != f:
-                raise AssertionError(f"pull: prompt {len(p)}: tokens {toks}, "
-                                     f"kernel-path prefill argmax {f}")
-
-        store = delivery.open_store(cfg)
-        try:
-            mkey = delivery.manifest_key("hf", PULL_MODEL)
-            record = json.loads(store.get(mkey)) if store.has(mkey) else {}
-            stored = sum(store.size(f["key"]) for f in record.get("files", []))
-        finally:
-            store.close()
-        if sorted(f["name"] for f in record.get("files", [])) != \
-                sorted(files) or stored != nbytes:
-            raise AssertionError(f"pull: manifest record {mkey} lists "
-                                 f"{record.get('files')}")
-        del params, placed
-        torch.cuda.empty_cache()
+        if sum(by_kernel.values()) != fa.launches:
+            raise AssertionError(f"K1 launches {fa.launches} vs by kernel "
+                                 f"{by_kernel}")
+        return load_s, tokens, by_kernel, engine.params, engine.cfg
     finally:
         if engine is not None:
             engine.stop()
-            serve.install(None)
         if server is not None:
             server.stop()
-        hub.shutdown()
-        hub.server_close()
-        shutil.rmtree(tmp, ignore_errors=True)
-    tiny = _tiny_on_einsum()
+        serve.install(None)
+
+
+def _manifest_record(cfg) -> dict:
+    from demodel_tpu_torch import delivery
+
+    store = delivery.open_store(cfg)
+    try:
+        mkey = delivery.manifest_key("hf", PULL_MODEL)
+        record = json.loads(store.get(mkey)) if store.has(mkey) else {}
+        record["stored_bytes"] = sum(store.size(f["key"])
+                                     for f in record.get("files", []))
+        record["key"] = mkey
+        return record
+    finally:
+        store.close()
+
+
+def phase_pull(rig: _HubRig) -> tuple[int, dict]:
+    """Cold pull → placement → build → serve of the 8-layer F16
+    checkpoint. Returns the K1 launches of the main path (all on
+    ``wgmma_f16``) and what the peer phase holds its own pull against."""
+    import numpy as np
+    import torch
+
+    from demodel_tpu_torch.models import llama
+
+    cfg = rig.config("cache")
+    pgen = torch.Generator().manual_seed(8)
+    prompts = [_prompt(pgen, n, VOCAB) for n in PULL_PROMPTS]
+    spans = ("registry-fetch", "sink-deliver", "serve.load-model")
+    before = {k: _span_s(k) for k in spans}
+    load_s, tokens, by_kernel, params, mcfg = _load_and_serve(rig, cfg,
+                                                              prompts)
+    placed = _placed_by_source_name(params)
+    launches = sum(by_kernel.values())
+    span_s = {k: _span_s(k) - before[k] for k in spans}
+
+    # every placed tensor against its source, on the card
+    unequal = _unequal(placed, rig.src)
+    if unequal:
+        raise AssertionError(f"pull: placed tensors differ from their "
+                             f"sources: {unequal[:5]}")
+    if mcfg.dtype != "float16" or mcfg.num_hidden_layers != PULL_LAYERS:
+        raise AssertionError(f"pull: built {mcfg}")
+    want = PULL_LAYERS * len(prompts)
+    if launches != want or by_kernel["wgmma_f16"] != want:
+        raise AssertionError(f"pull: K1 launches {by_kernel}, expected "
+                             f"{want} on wgmma_f16")
+
+    # prefill logits, kernel path vs plain path (comparison only)
+    rel_errs, first = [], []
+    with torch.inference_mode():
+        for p in prompts:
+            toks = torch.tensor([p], device="cuda")
+            got = llama.step_prefill(params, toks, mcfg)[0][0].float()
+            os.environ["DEMODEL_FLASH_ATTN"] = "0"
+            try:
+                ref = llama.step_prefill(params, toks, mcfg)[0][0].float()
+            finally:
+                del os.environ["DEMODEL_FLASH_ATTN"]
+            rel_errs.append(((got - ref).norm() / ref.norm()).item())
+            first.append(int(torch.argmax(got).item()))
+    if max(rel_errs) > LOGITS_REL_TOL or not all(map(np.isfinite,
+                                                     rel_errs)):
+        raise AssertionError(f"pull: prefill logits kernel vs plain rel "
+                             f"errors {rel_errs} > {LOGITS_REL_TOL}")
+    for p, toks, f in zip(prompts, tokens, first):
+        if len(toks) != PULL_NEW or toks[0] != f:
+            raise AssertionError(f"pull: prompt {len(p)}: tokens {toks}, "
+                                 f"kernel-path prefill argmax {f}")
+
+    record = _manifest_record(cfg)
+    if sorted(f["name"] for f in record.get("files", [])) != \
+            sorted(rig.files) or record["stored_bytes"] != rig.nbytes:
+        raise AssertionError(f"pull: manifest record {record['key']} lists "
+                             f"{record.get('files')}")
     load = span_s["serve.load-model"]
     # the registry pull's and the delivery's wall seconds, as the pull
     # recorded them in its manifest; the spans' sums (fetches overlap, so
     # registry-fetch can exceed the wall) and shares of serve.load-model
     pull_s, sink_s = record["secs"], record["tpu_sink"]["secs"]
     _say("pull", model=f"{PULL_MODEL} widths, {PULL_LAYERS} layers, f16, "
-         "seeded", checkpoint_build_s=round(build_s, 3), pulled_bytes=nbytes,
-         pull_s=pull_s, pull_and_place_s=sink_s, load_model_s=load_s,
-         span_sum_s=span_s,
+         "seeded", checkpoint_build_s=round(rig.build_s, 3),
+         pulled_bytes=rig.nbytes, pull_s=pull_s, pull_and_place_s=sink_s,
+         load_model_s=load_s, span_sum_s=span_s,
          span_share={k: v / load for k, v in span_s.items()},
-         pull_GBps=nbytes / pull_s / 1e9, load_GBps=nbytes / load / 1e9,
-         tensors_equal=len(src),
+         pull_GBps=rig.nbytes / pull_s / 1e9,
+         load_GBps=rig.nbytes / load / 1e9, tensors_equal=len(rig.src),
          k1_launches=launches, k1_launches_by_kernel=by_kernel,
          prompt_lens=list(PULL_PROMPTS), tokens=tokens,
          logits_rel_err=rel_errs, logits_tol=LOGITS_REL_TOL,
-         manifest_key=mkey, tiny=tiny)
+         manifest_key=record["key"], hub_requests=dict(rig.counts))
+    return launches, {"cfg": cfg, "placed": placed, "prompt": prompts[0],
+                      "tokens": tokens[0]}
+
+
+def phase_peer(rig: _HubRig, pulled: dict) -> int:
+    """``serve.load_model`` from a peer: the pull phase's store served by
+    the port's ``ProxyServer`` on 127.0.0.1, a fresh store, the same Hub
+    as endpoint. Returns the K1 launches (all on ``wgmma_f16``)."""
+    from demodel_tpu_torch.parallel.peer import PeerGossip
+    from demodel_tpu_torch.proxy import ProxyServer
+    from demodel_tpu_torch.utils.metrics import HUB
+
+    proxy = ProxyServer(pulled["cfg"], session_threads=8).start()
+    try:
+        cfg = rig.config("peer-cache")
+        hub_before = dict(rig.counts)
+        peer_files0 = HUB.get("pull_files_from_peer_total")
+        deliver0 = _span_s("sink-deliver")
+        load_s, tokens, by_kernel, params, _ = _load_and_serve(
+            rig, cfg, [pulled["prompt"]], peers=[proxy.url])
+        deliver_s = _span_s("sink-deliver") - deliver0
+        hub = {k: rig.counts[k] - hub_before[k] for k in rig.counts}
+        served = proxy.metrics()
+    finally:
+        PeerGossip.reset_shared()
+        proxy.stop()
+    launches = sum(by_kernel.values())
+    placed = _placed_by_source_name(params)
+    record = _manifest_record(cfg)
+    files = record.get("files", [])
+    if hub["resolve"] or hub["cdn"]:
+        raise AssertionError(f"peer: the Hub served file requests {hub}")
+    if sorted(f["name"] for f in files) != sorted(rig.files) or not all(
+            f["from_peer"] for f in files) or \
+            record["stored_bytes"] != rig.nbytes:
+        raise AssertionError(f"peer: files not all from the peer, or not "
+                             f"all stored: {files}")
+    if HUB.get("pull_files_from_peer_total") - peer_files0 != len(files):
+        raise AssertionError("peer: pull_files_from_peer_total is not the "
+                             "file count")
+    unequal = _unequal(placed, pulled["placed"])
+    if unequal:
+        raise AssertionError(f"peer: placed tensors differ from the pull "
+                             f"phase's: {unequal[:5]}")
+    if tokens[0] != pulled["tokens"]:
+        raise AssertionError(f"peer: tokens {tokens[0]} vs the pull phase's "
+                             f"{pulled['tokens']}")
+    if launches != PULL_LAYERS or by_kernel["wgmma_f16"] != launches:
+        raise AssertionError(f"peer: K1 launches {by_kernel}, expected "
+                             f"{PULL_LAYERS} on wgmma_f16")
+    _say("peer", model=f"{PULL_MODEL} widths, {PULL_LAYERS} layers, f16",
+         peer_bytes=rig.nbytes, pull_s=record["secs"],
+         pull_GBps=rig.nbytes / record["secs"] / 1e9,
+         pull_and_place_s=record["tpu_sink"]["secs"], load_model_s=load_s,
+         sink_deliver_s=deliver_s, files_from_peer=len(files),
+         hub_requests=hub, peer_serve_bytes=served.get("serve_bytes_total"),
+         tensors_equal=len(placed), tokens=tokens[0],
+         k1_launches_by_kernel=by_kernel)
     return launches
 
 
-def _tiny_on_einsum() -> dict:
-    """``LlamaConfig.tiny()`` (head dim 8, which no kernel takes) on the
-    card. By default its prefill reaches K1, whose plan refuses it:
-    nothing on the card drops to einsum unasked. With the caller's
-    explicit ``DEMODEL_FLASH_ATTN=0`` it is served on the einsum path, no
-    K1 launch, its engine tokens equal to the sequential ``generate``."""
+def phase_tiny() -> dict[str, int]:
+    """``LlamaConfig.tiny()`` (head dim 8) on the card in f32, bf16 and
+    f16. By default it is served through K1's CUDA-core kernel in its
+    type, engine tokens equal to ``generate``; with the caller's
+    explicit ``DEMODEL_FLASH_ATTN=0`` on the einsum path, no K1 launch.
+    Returns the K1 launches by kernel over the default runs."""
+    import dataclasses
+
     import torch
 
     from demodel_tpu_torch import serve
     from demodel_tpu_torch.models import llama
     from demodel_tpu_torch.ops import flash_attention as fa
 
-    cfg = llama.LlamaConfig.tiny()
-    params = llama.init_params(torch.Generator("cuda").manual_seed(9), cfg,
-                               "cuda")
-    prompt = _prompt(torch.Generator().manual_seed(10), 12, cfg.vocab_size)
-    try:
-        llama.step_prefill(params, torch.tensor([prompt], device="cuda"),
-                           cfg)
-    except ValueError as e:
-        refused = str(e)
-    else:
-        raise AssertionError("tiny: head dim 8 on the card did not raise "
-                             "without DEMODEL_FLASH_ATTN=0")
-    os.environ["DEMODEL_FLASH_ATTN"] = "0"
-    try:
+    def served(params, cfg, prompt) -> tuple[list[int], list[int], dict]:
         want = llama.generate(params, cfg, prompt, PULL_NEW)[0].tolist()
-        _reset_k1()
+        _reset_k1()  # the engine's launches only
         engine = serve.boot(params, cfg, device="cuda", kv_mb=16,
                             max_new_tokens=PULL_NEW)
         try:
@@ -1354,13 +1740,35 @@ def _tiny_on_einsum() -> dict:
         finally:
             engine.stop()
             serve.install(None)
-    finally:
-        del os.environ["DEMODEL_FLASH_ATTN"]
-    if fa.launches != 0 or got != want:
-        raise AssertionError(f"tiny: K1 launches {fa.launches_by_kernel}, "
-                             f"tokens {got} vs generate {want}")
-    return {"head_dim": cfg.head_dim, "default_refused": refused,
-            "k1_launches": fa.launches, "tokens": got}
+        return got, want, dict(fa.launches_by_kernel)
+
+    total = {k: 0 for k in SIMT_ROWS.values()}
+    rows = {}
+    for i, (dtype, kernel) in enumerate(SIMT_ROWS.items()):
+        cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=dtype)
+        params = llama.init_params(torch.Generator("cuda").manual_seed(9 + i),
+                                   cfg, "cuda")
+        prompt = _prompt(torch.Generator().manual_seed(10), 12,
+                         cfg.vocab_size)
+        got, want, by_kernel = served(params, cfg, prompt)
+        if got != want or by_kernel[kernel] != cfg.num_hidden_layers or \
+                sum(by_kernel.values()) != by_kernel[kernel]:
+            raise AssertionError(f"tiny {dtype}: K1 launches {by_kernel}, "
+                                 f"tokens {got} vs generate {want}")
+        total[kernel] += by_kernel[kernel]
+        os.environ["DEMODEL_FLASH_ATTN"] = "0"
+        try:
+            e_got, e_want, e_by = served(params, cfg, prompt)
+        finally:
+            del os.environ["DEMODEL_FLASH_ATTN"]
+        if sum(e_by.values()) != 0 or e_got != e_want:
+            raise AssertionError(f"tiny {dtype} on einsum: K1 launches "
+                                 f"{e_by}, tokens {e_got} vs {e_want}")
+        rows[dtype] = {"kernel_tokens": got, "k1_launches": by_kernel[kernel],
+                       "einsum_tokens": e_got}
+    _say("tiny", head_dim=llama.LlamaConfig.tiny().head_dim,
+         k1_launches=total, runs=rows)
+    return total
 
 
 def _dequant_entries(rows: dict[str, dict], launches: dict[str, int]
@@ -1387,6 +1795,35 @@ def _dequant_entries(rows: dict[str, dict], launches: dict[str, int]
             entry("q4_0", "q4_0", DEQUANT_REPLACES["q4_0"]), k_quant]
 
 
+def _flash_entries(rows: dict[str, dict], launches: dict[str, int]
+                   ) -> list[dict]:
+    """The kernels-line entries of K1: the bf16 and f16 tensor-core
+    kernel at the 7B prefill (S=512), and the CUDA-core kernel in each
+    type at the tiny phase's shape, with its rows at head dims 80 and
+    256 (S=512) beside."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "device_ms_by", "library_device_ms",
+            "library_device_ms_by", "shape", "dtype")
+
+    def entry(name: str, row: dict, n: int) -> dict:
+        return {"name": name, "route": "cuda",
+                "source": "demodel_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "demodel_tpu/ops/flash_attention.py:136",
+                "launches": n, **{k: row[k] for k in keys}}
+
+    out = [entry("flash_attention", rows["prefill_s512"],
+                 launches["wgmma_bf16"]),
+           entry("flash_attention_f16", rows["f16_prefill_s512"],
+                 launches["wgmma_f16"])]
+    for dtype, kernel in SIMT_ROWS.items():
+        e = entry(f"flash_attention_{kernel}", rows[f"tiny_prefill_{dtype}"],
+                  launches[kernel])
+        e["head_dims"] = [{k: rows[f"d{D}_{dtype}"][k] for k in keys}
+                          for D in (80, 256)]
+        out.append(e)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1399,29 +1836,28 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
-    k512, f16_512 = phase_kernel()
+    rows = phase_kernel()
     dq_rows = phase_dequant()
-    launches = phase_slice()
+    k1 = {"wgmma_bf16": phase_slice()}
     phase_parity()
     dq_launches = phase_gguf()
-    f16_launches = phase_pull()
+    for fmt, n in phase_ollama().items():
+        dq_launches[fmt] += n
+    rig = _HubRig()
+    try:
+        k1["wgmma_f16"], pulled = phase_pull(rig)
+        k1["wgmma_f16"] += phase_peer(rig, pulled)
+        del pulled
+    finally:
+        rig.close()
+    del rig
+    torch.cuda.empty_cache()
+    k1.update(phase_tiny())
     _say("done", total_s=round(time.perf_counter() - t0, 3))
     print(smi, flush=True)
-
-    def flash_entry(name: str, row: dict, n: int) -> dict:
-        return {"name": name, "route": "cuda",
-                "source": "demodel_tpu_torch/csrc/flash_attention.cu",
-                "replaces": "demodel_tpu/ops/flash_attention.py:136",
-                "launches": n, **{k: row[k] for k in (
-                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "device_ms", "device_ms_by",
-                    "library_device_ms", "library_device_ms_by", "shape",
-                    "dtype")}}
-
-    print(json.dumps({"kernels": [
-        flash_entry("flash_attention", k512, launches),
-        flash_entry("flash_attention_f16", f16_512, f16_launches),
-        *_dequant_entries(dq_rows, dq_launches)]}), flush=True)
+    print(json.dumps({"kernels": [*_flash_entries(rows, k1),
+                                  *_dequant_entries(dq_rows, dq_launches)]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

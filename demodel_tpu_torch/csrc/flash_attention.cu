@@ -1,6 +1,7 @@
 // Fused flash-attention forward for NVIDIA Hopper (sm_90a): two kernels,
-// the tensor-core one instantiated for bf16 and for f16, chosen by the input
-// dtype alone.
+// chosen by the input dtype and head dim. The tensor-core one is
+// instantiated for bf16 and f16 at head dims 64 and 128; the CUDA-core one
+// takes float32, bf16 and f16 at every head dim up to 256.
 //
 // Replaces the Pallas TPU kernel demodel_tpu/ops/flash_attention.py
 // `_flash_kernel` (launched by `_flash_forward`, public entry
@@ -39,14 +40,24 @@
 // (`.f32.f16.f16`), the TMA map's element type and the packing of P and the
 // output; a pulled Llama-2 checkpoint is stored in f16 and reaches K1 so.
 //
-// float32: `flash_fwd_kernel<float, D>`, on the CUDA cores, because the JAX
-// kernel computes in fp32 and the f32 tolerances (1e-4) rule out bf16 or TF32
-// tensor cores. One block of 8 warps per (q-tile of 32 rows, head, batch
-// row); each warp owns 4 query rows. For every 32-key tile, lane j scores
-// key j against the warp's 4 rows (q rows read as broadcast float4, key rows
-// padded to D+1 floats so the 32 lanes hit 32 banks), the running max /
-// denominator update with warp shuffles, and then each lane accumulates
-// output columns lane, lane+32, ... of P.V in fp32 registers.
+// float32, and bf16 and f16 at head dims other than 64 and 128:
+// `flash_fwd_kernel<T, DP>`, on the CUDA cores. float32 goes there because
+// the JAX kernel computes in fp32 and the f32 tolerances (1e-4) rule out bf16
+// or TF32 tensor cores; the other head dims because the tensor-core kernel
+// is instantiated for 64 and 128 only. DP is the head dim padded up to 32,
+// 64, 128 or 256 and the true D (<= DP) a runtime argument: columns past D
+// load as zeros and are never stored, and the scale stays D^-0.5 of the true
+// D. One block of 8 warps per (q-tile of 32 rows, head, batch row); each warp
+// owns 4 query rows. For every 32-key tile, lane j scores key j against the
+// warp's 4 rows (q rows read as broadcast float4, key rows padded to DP+1
+// floats so the 32 lanes hit 32 banks), the running max / denominator update
+// with warp shuffles, and then each lane accumulates output columns lane,
+// lane+32, ... of P.V in fp32 registers. In bf16 and f16, P is rounded to T
+// before P.V, as in the tensor-core kernel. The tiles are fp32 in shared
+// memory: 98,432 bytes at DP=256, above the 48 KB default, so the launch
+// raises the block's dynamic shared memory limit. This kernel is bound by
+// its FMA issue rate (no tensor cores): at D=256, S=512 it does the same
+// operations as the wgmma kernel on 1/15 of the peak.
 //
 // Both kernels keep HBM traffic at O(S*D) per head (the S*S scores never
 // leave the SM), read (B, S, H, D) tensors through their strides (no
@@ -62,6 +73,7 @@
 #include <atomic>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 // The launch, as the wrapper's plan packs it: every field 8 bytes, no
 // padding. Strides are in elements; the last dim of every tensor is
@@ -73,7 +85,8 @@ struct LaunchArgs {
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   long long causal;
-  long long kernel;  // 0: float32 CUDA cores, 1: bf16 and 2: f16 tensor cores
+  long long kernel;  // 0, 3, 4: f32, bf16, f16 CUDA cores; 1, 2: bf16, f16
+                     // tensor cores
   long long grid_x, threads, smem;
   long long device;
   double scale;
@@ -109,11 +122,23 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -128,20 +153,24 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
+template <int DP>
 constexpr int smem_floats() {
-  return kBlockQ * D + kBlockK * (D + 1) + kBlockK * D;
+  return kBlockQ * DP + kBlockK * (DP + 1) + kBlockK * DP;
 }
 
-template <typename T, int D>
+// T is the element type of q, k, v and o (float, bf16 or f16); DP the head
+// dim padded up to a multiple of 32 (32, 64, 128 or 256) and `D` <= DP the
+// true one. Columns D..DP-1 are zeros in shared memory, so they add nothing
+// to the scores and produce columns that are never stored.
+template <typename T, int DP>
 __global__ void __launch_bounds__(kWarps * 32)
-    flash_fwd_kernel(const Params p) {
-  static_assert(D % 32 == 0, "head dim must be a multiple of 32");
-  constexpr int kCols = D / 32;  // output columns per lane
+    flash_fwd_kernel(const Params p, const int D) {
+  static_assert(DP % 32 == 0, "padded head dim must be a multiple of 32");
+  constexpr int kCols = DP / 32;  // output columns per lane
   extern __shared__ __align__(16) float smem[];
-  float* sq = smem;                    // [kBlockQ][D]   q * scale
-  float* sk = sq + kBlockQ * D;        // [kBlockK][D+1] keys
-  float* sv = sk + kBlockK * (D + 1);  // [kBlockK][D]   values
+  float* sq = smem;                     // [kBlockQ][DP]   q * scale
+  float* sk = sq + kBlockQ * DP;        // [kBlockK][DP+1] keys
+  float* sv = sk + kBlockK * (DP + 1);  // [kBlockK][DP]   values
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -157,11 +186,11 @@ __global__ void __launch_bounds__(kWarps * 32)
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sh;
 
-  for (int i = tid; i < kBlockQ * D; i += kWarps * 32) {
-    const int r = i / D;
-    const int d = i - r * D;
+  for (int i = tid; i < kBlockQ * DP; i += kWarps * 32) {
+    const int r = i / DP;
+    const int d = i - r * DP;
     const int qi = q0 + r;
-    sq[i] = qi < p.Sq ? to_f32(q[qi * p.q_ss + d]) * p.scale : 0.f;
+    sq[i] = qi < p.Sq && d < D ? to_f32(q[qi * p.q_ss + d]) * p.scale : 0.f;
   }
 
   // keys any row of this block can see: the valid prefix, cut at the
@@ -182,13 +211,13 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   for (int t0 = 0; t0 < k_end; t0 += kBlockK) {
     __syncthreads();  // the previous tile is consumed (and sq is written)
-    for (int i = tid; i < kBlockK * D; i += kWarps * 32) {
-      const int j = i / D;
-      const int d = i - j * D;
+    for (int i = tid; i < kBlockK * DP; i += kWarps * 32) {
+      const int j = i / DP;
+      const int d = i - j * DP;
       const int kj = t0 + j;
-      const bool in = kj < p.Sk;
-      sk[j * (D + 1) + d] = in ? to_f32(k[kj * p.k_ss + d]) : 0.f;
-      sv[j * D + d] = in ? to_f32(v[kj * p.v_ss + d]) : 0.f;
+      const bool in = kj < p.Sk && d < D;
+      sk[j * (DP + 1) + d] = in ? to_f32(k[kj * p.k_ss + d]) : 0.f;
+      sv[j * DP + d] = in ? to_f32(v[kj * p.v_ss + d]) : 0.f;
     }
     __syncthreads();
 
@@ -196,17 +225,17 @@ __global__ void __launch_bounds__(kWarps * 32)
     float s[kRowsPerWarp];
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) s[rr] = 0.f;
-    const float* krow = sk + lane * (D + 1);
-    const float* qrow = sq + warp * kRowsPerWarp * D;
+    const float* krow = sk + lane * (DP + 1);
+    const float* qrow = sq + warp * kRowsPerWarp * DP;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DP; d += 4) {
       const float k0 = krow[d];
       const float k1 = krow[d + 1];
       const float k2 = krow[d + 2];
       const float k3 = krow[d + 3];
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float4 qv = *reinterpret_cast<const float4*>(qrow + rr * D + d);
+        const float4 qv = *reinterpret_cast<const float4*>(qrow + rr * DP + d);
         s[rr] = fmaf(qv.x, k0, s[rr]);
         s[rr] = fmaf(qv.y, k1, s[rr]);
         s[rr] = fmaf(qv.z, k2, s[rr]);
@@ -215,7 +244,9 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
 
     // online softmax; masked entries score NEG_INF and weigh exactly 0, so
-    // a row with no visible key keeps l == 0
+    // a row with no visible key keeps l == 0. l sums the fp32
+    // probabilities; in the 2-byte types P.V takes them rounded to T, as
+    // the tensor-core kernel and the JAX reference do.
     const int kj = t0 + lane;
     float pr[kRowsPerWarp];
 #pragma unroll
@@ -225,8 +256,9 @@ __global__ void __launch_bounds__(kWarps * 32)
       const float sc = valid ? s[rr] : kNegInf;
       const float m_new = fmaxf(m[rr], warp_max(sc));
       const float alpha = expf(m[rr] - m_new);
-      pr[rr] = valid ? expf(sc - m_new) : 0.f;
-      l[rr] = l[rr] * alpha + warp_sum(pr[rr]);
+      const float e = valid ? expf(sc - m_new) : 0.f;
+      l[rr] = l[rr] * alpha + warp_sum(e);
+      pr[rr] = to_f32(from_f32<T>(e));
       m[rr] = m_new;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) acc[rr][c] *= alpha;
@@ -241,7 +273,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         pj[rr] = __shfl_sync(0xffffffffu, pr[rr], j);
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const float vv = sv[j * D + c * 32 + lane];
+        const float vv = sv[j * DP + c * 32 + lane];
 #pragma unroll
         for (int rr = 0; rr < kRowsPerWarp; ++rr)
           acc[rr][c] = fmaf(pj[rr], vv, acc[rr][c]);
@@ -258,7 +290,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     T* orow = static_cast<T*>(p.o) + b * p.o_sb + qi * p.o_ss + h * p.o_sh;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      orow[c * 32 + lane] = from_f32<T>(acc[rr][c] * inv);
+      if (c * 32 + lane < D) orow[c * 32 + lane] = from_f32<T>(acc[rr][c] * inv);
     if (p.lse != nullptr && lane == 0)
       p.lse[(static_cast<long long>(b) * p.Sq + qi) * p.H + h] =
           l[rr] > 0.f ? m[rr] + logf(l[rr]) : kNegInf;
@@ -776,13 +808,19 @@ cudaError_t allow_smem(const void* fn, int smem, int device) {
   return err;
 }
 
-template <int D>
+template <typename T, int DP>
 cudaError_t launch_simt(const LaunchArgs& a, cudaStream_t stream) {
-  const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  if (a.smem != smem || a.threads != kWarps * 32) return cudaErrorInvalidValue;
+  const int smem = smem_floats<DP>() * static_cast<int>(sizeof(float));
+  if (a.smem != smem || a.threads != kWarps * 32 || a.D > DP || a.D < 1)
+    return cudaErrorInvalidValue;
+  constexpr int kKind = std::is_same<T, float>::value           ? 0
+                        : std::is_same<T, __nv_bfloat16>::value ? 3
+                                                                : 4;
+  // 98,432 bytes at DP=256: above the 48 KB default, so the attribute is
+  // set for every instantiation before its first launch
   cudaError_t err =
-      allow_smem<0, D>(reinterpret_cast<const void*>(flash_fwd_kernel<float, D>),
-                       smem, static_cast<int>(a.device));
+      allow_smem<kKind, DP>(reinterpret_cast<const void*>(flash_fwd_kernel<T, DP>),
+                            smem, static_cast<int>(a.device));
   if (err != cudaSuccess) return err;
   Params p;
   p.q = reinterpret_cast<const void*>(a.q);
@@ -805,8 +843,20 @@ cudaError_t launch_simt(const LaunchArgs& a, cudaStream_t stream) {
   p.scale = static_cast<float>(a.scale);
   p.causal = static_cast<int>(a.causal);
   const dim3 grid(static_cast<unsigned>(a.grid_x), p.H, p.B);
-  flash_fwd_kernel<float, D><<<grid, kWarps * 32, smem, stream>>>(p);
+  flash_fwd_kernel<T, DP><<<grid, kWarps * 32, smem, stream>>>(
+      p, static_cast<int>(a.D));
   return cudaGetLastError();
+}
+
+// the CUDA-core kernel in element type T at the head dim padded up to the
+// next of 32, 64, 128, 256
+template <typename T>
+cudaError_t launch_simt_any(const LaunchArgs& a, cudaStream_t stream) {
+  if (a.D <= 32) return launch_simt<T, 32>(a, stream);
+  if (a.D <= 64) return launch_simt<T, 64>(a, stream);
+  if (a.D <= 128) return launch_simt<T, 128>(a, stream);
+  if (a.D <= 256) return launch_simt<T, 256>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
@@ -868,8 +918,9 @@ extern "C" int demodel_flash_attention_fwd(const LaunchArgs* args,
     err = cudaSetDevice(static_cast<int>(a.device));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.kernel == 0 && a.D == 64) return launch_simt<64>(a, s);
-  if (a.kernel == 0 && a.D == 128) return launch_simt<128>(a, s);
+  if (a.kernel == 0) return launch_simt_any<float>(a, s);
+  if (a.kernel == 3) return launch_simt_any<__nv_bfloat16>(a, s);
+  if (a.kernel == 4) return launch_simt_any<__half>(a, s);
   if (a.kernel == 1 && a.D == 64) return launch_wgmma<__nv_bfloat16, 64>(a, s);
   if (a.kernel == 1 && a.D == 128) return launch_wgmma<__nv_bfloat16, 128>(a, s);
   if (a.kernel == 2 && a.D == 64) return launch_wgmma<__half, 64>(a, s);

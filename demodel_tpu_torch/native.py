@@ -141,6 +141,18 @@ def _configure(L: ctypes.CDLL) -> None:
     # upstream fetch over parallel Range connections (proxy.cc)
     sig("dm_upstream_fetch_parallel", I64,
         [P, CP, I, I, CP, CP, CP, I64, I, CP, CP, CP, I])
+    # peer fetch into the store (proxy.cc)
+    sig("dm_peer_fetch_parallel", I64,
+        [P, CP, I, CP, CP, I64, I, CP, CP, CP, I])
+    # the proxy that serves a store to peers (proxy.py)
+    sig("dm_proxy_new", P,
+        [CP, I, I, I, CP, CP, CP, I, P, I, I, I64, I64, I, I64, I, I, I, I,
+         I, I])
+    sig("dm_proxy_start", I, [P])
+    sig("dm_proxy_port", I, [P])
+    sig("dm_proxy_stop", None, [P])
+    sig("dm_proxy_free", None, [P])
+    sig("dm_proxy_metrics", I, [P, CP, I])
 
 
 def lib() -> ctypes.CDLL:

@@ -17,10 +17,12 @@ Dispatch is by the tensors' device alone:
   the JAX package;
 - CUDA tensors go to a kernel in ``csrc/flash_attention.cu``, built
   with nvcc at first use into ``build/torch_kernels/`` and loaded with
-  ctypes: bf16 and f16 to the tensor-core kernel (``wgmma`` over a TMA
-  ring, one instantiation per type), float32 to the CUDA-core kernel.
-  The dtype alone chooses; a dtype or head dim that no kernel takes, a
-  build or a launch failure raises, and nothing falls back.
+  ctypes: bf16 and f16 at head dim 64 or 128 to the tensor-core kernel
+  (``wgmma`` over a TMA ring, one instantiation per type and head dim),
+  every other float32, bf16 or f16 shape with a head dim up to 256 to
+  the CUDA-core kernel (instantiated per type at the head dim padded to
+  32, 64, 128 or 256). A dtype or head dim that no kernel takes (float64,
+  D > 256), a build or a launch failure raises, and nothing falls back.
 
 :func:`launch_plan` makes every host-side choice of a launch (checks,
 kernel, windows by value or as a tensor, copies for TMA alignment, grid
@@ -50,19 +52,26 @@ NEG_INF = -1e30
 #: kernel launches so far (CUDA tensors only); tests and the chip smoke
 #: reset it to 0 around the run they observe
 launches = 0
-#: the same launches by kernel (:data:`KERNELS`' names)
-launches_by_kernel = {"wgmma_bf16": 0, "wgmma_f16": 0, "simt_f32": 0}
+#: the same launches by kernel (the names :func:`kernel_for` gives)
+launches_by_kernel = {"wgmma_bf16": 0, "wgmma_f16": 0, "simt_f32": 0,
+                      "simt_bf16": 0, "simt_f16": 0}
 _launch_lock = threading.Lock()
 
 SOURCES = (_build.CSRC / "flash_attention.cu",)
 BUILD_DIR = _build.BUILD_DIR
 CUDA_DEFAULT = _build.CUDA_DEFAULT
 NVCC_FLAGS = _build.NVCC_FLAGS
-_HEAD_DIMS = (64, 128)
-#: dtype → (kernel name, C enum, query rows per block, threads per block)
-KERNELS = {torch.float32: ("simt_f32", 0, 32, 256),
-           torch.bfloat16: ("wgmma_bf16", 1, 64, 160),
-           torch.float16: ("wgmma_f16", 2, 64, 160)}
+#: head dims of the tensor-core kernel's instantiations
+WGMMA_HEAD_DIMS = (64, 128)
+#: the CUDA-core kernel's head dims, each taking every D up to it
+SIMT_HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = SIMT_HEAD_DIMS[-1]
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
+#: kernel name → (C enum, query rows per block, threads per block)
+KERNELS = {"simt_f32": (0, 32, 256), "wgmma_bf16": (1, 64, 160),
+           "wgmma_f16": (2, 64, 160), "simt_bf16": (3, 32, 256),
+           "simt_f16": (4, 32, 256)}
 #: K/V ring depth of the tensor-core kernel
 STAGES = 2
 _INT32 = (-2 ** 31, 2 ** 31 - 1)
@@ -219,12 +228,35 @@ def _tma_ok(t: torch.Tensor) -> bool:
     return sd == 1 and (sb | ss | sh) % 8 == 0 and t.data_ptr() % 16 == 0
 
 
+def kernel_for(dtype: torch.dtype, D: int) -> str:
+    """The kernel that takes ``dtype`` at head dim ``D``: bf16 and f16 at
+    :data:`WGMMA_HEAD_DIMS` on the tensor cores, every other float32,
+    bf16 or f16 head dim up to :data:`MAX_HEAD_DIM` on the CUDA cores.
+    Raises on what no kernel takes."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"flash kernel takes float32, bfloat16 or float16, "
+                        f"got {dtype}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash kernel takes head dims 1..{MAX_HEAD_DIM}, "
+                         f"got {D}")
+    if dtype != torch.float32 and D in WGMMA_HEAD_DIMS:
+        return f"wgmma_{_SUFFIX[dtype]}"
+    return f"simt_{_SUFFIX[dtype]}"
+
+
+def padded_head_dim(D: int) -> int:
+    """The CUDA-core kernel's instantiation that takes head dim ``D``."""
+    return next(dp for dp in SIMT_HEAD_DIMS if D <= dp)
+
+
 def smem_bytes(kernel: str, D: int) -> int:
     """Dynamic shared memory of one block (mirrors csrc's
-    ``tc_smem_bytes`` and ``smem_floats``)."""
+    ``tc_smem_bytes`` and ``smem_floats``, the latter at the padded head
+    dim: 98,432 bytes at 256)."""
     if kernel.startswith("wgmma"):
         return 64 * D * 2 * (1 + 2 * STAGES) + 1024
-    return 4 * (32 * D + 32 * (D + 1) + 32 * D)
+    dp = padded_head_dim(D)
+    return 4 * (32 * dp + 32 * (dp + 1) + 32 * dp)
 
 
 def launch_plan(q, k, v, kv_len=None, causal_offset=None) -> LaunchPlan:
@@ -233,17 +265,15 @@ def launch_plan(q, k, v, kv_len=None, causal_offset=None) -> LaunchPlan:
     work). Raises on what no kernel takes."""
     B, Sq, H, D = q.shape
     Sk, G = k.shape[1], k.shape[2]
-    if q.dtype not in KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes float32, bfloat16 or float16 q, "
-                        f"k, v of one dtype, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head dim {_HEAD_DIMS}, got {D}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash kernel takes q, k, v of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    kernel = kernel_for(q.dtype, D)
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must be on one device")
     if H > 65535 or B > 65535:
         raise ValueError(f"grid too large: B={B}, H={H}")
-    kernel, code, rows, threads = KERNELS[q.dtype]
+    code, rows, threads = KERNELS[kernel]
     if kernel.startswith("wgmma"):
         copy = tuple(not _tma_ok(t) for t in (q, k, v))
     else:

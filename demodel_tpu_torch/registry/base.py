@@ -11,9 +11,9 @@ native Range connections (``dm_upstream_fetch_parallel``). The HTTP
 client is the standard library's
 (:class:`~demodel_tpu_torch.utils.faults.HTTPClient`).
 
-Peer and memory-first delivery (bytes landing in a host buffer for the
-device sink while the cache copy commits in the background) come with
-the peer plane.
+With a :class:`~demodel_tpu_torch.parallel.peer.PeerSet`, a miss asks
+the peers first, whose bytes land in the store verified against the
+file's digest; only what no peer holds goes to the upstream registry.
 """
 
 from __future__ import annotations
@@ -98,10 +98,12 @@ class Fetcher:
     registry adapters fetch shards concurrently."""
 
     def __init__(self, store: Store, ca: str | None = None,
-                 headers: dict | None = None):
+                 headers: dict | None = None, peers=None):
         self.store = store
         self.ca = ca
         self.http = HTTPClient(ca=ca, headers=headers)
+        #: Optional[demodel_tpu_torch.parallel.peer.PeerSet]
+        self.peers = peers
         #: one wire policy per Fetcher (constructed per pull, so env
         #: overrides land); upstream registries get retries but no
         #: breakers — there is exactly one of each, nothing to rotate to
@@ -236,6 +238,7 @@ class Fetcher:
                 art = self._fetch_once(url, name, expected_digest,
                                        media_type, extra_headers)
             sp.set_attr("bytes", art.size)
+            sp.set_attr("from_peer", art.from_peer)
             sp.set_attr("from_cache", art.from_cache)
             return art
 
@@ -264,6 +267,11 @@ class Fetcher:
                 # benign race: the last key holding that digest was
                 # removed between has_digest and link — fetch normally
                 log.debug("dedup %s failed (%s); fetching normally", name, e)
+        from_peer = False
+        if not self.store.has(key) and self.peers is not None:
+            # a peer that holds the bytes beats the upstream registry
+            from_peer = self.peers.fetch_into(
+                self.store, key, expected_digest=expected_digest)
         meta = self.store.meta(key) if self.store.has(key) else None
         if meta is not None:
             if expected_digest and meta.get("sha256") != expected_digest:
@@ -274,8 +282,8 @@ class Fetcher:
                     name=name, uri=url, key=key,
                     size=meta.get("size", self.store.size(key)),
                     sha256=meta.get("sha256", ""), media_type=media_type,
-                    etag=meta.get("etag", ""), from_cache=True,
-                    secs=time.perf_counter() - t0,
+                    etag=meta.get("etag", ""), from_cache=not from_peer,
+                    from_peer=from_peer, secs=time.perf_counter() - t0,
                 )
 
         if self.store.partial_size(key) == 0:

@@ -41,12 +41,13 @@ class HFRegistry:
         endpoint: str = DEFAULT_ENDPOINT,
         token: str | None = None,
         ca: str | None = None,
+        peers=None,
     ):
         self.endpoint = endpoint.rstrip("/")
         headers = {"User-Agent": "demodel-tpu/0.1"}
         if token:
             headers["Authorization"] = f"Bearer {token}"
-        self.fetcher = Fetcher(store, ca=ca, headers=headers)
+        self.fetcher = Fetcher(store, ca=ca, headers=headers, peers=peers)
 
     # -- API ------------------------------------------------------------
     def repo_info(self, repo_id: str, revision: str = "main") -> dict:

@@ -59,8 +59,9 @@ def load_model(model: str, cfg, *, source: str = "hf",
                mesh=None, peers: list[str] | None = None,
                device=None, **engine_kw) -> GenEngine:
     """Cold model boot: pull ``model`` through the store named by ``cfg``
-    (a :class:`~demodel_tpu_torch.config.ProxyConfig`), place its weights
-    on ``device`` (default ``cuda``; or the given one-device ``mesh``),
+    (a :class:`~demodel_tpu_torch.config.ProxyConfig`), from the peer
+    nodes in ``peers`` where they hold it, place its weights on
+    ``device`` (default ``cuda``; or the given one-device ``mesh``),
     build it, and start serving it. The whole boot is timed into
     ``stage_duration_seconds{span="serve.load-model"}``."""
     from demodel_tpu_torch import delivery

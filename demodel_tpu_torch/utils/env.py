@@ -83,3 +83,20 @@ def cache_max_gb() -> int:
     """``DEMODEL_CACHE_MAX_GB``: the disk tier's byte budget in GB
     (0 = unbounded), enforced after a pull through ``Store.gc``."""
     return env_int("DEMODEL_CACHE_MAX_GB", 0, minimum=0)
+
+
+def available_cpus() -> int:
+    """CPUs this process may run on (affinity-aware: a container pinned
+    to 1 CPU of a 64-core host counts 1)."""
+    try:
+        return len(os.sched_getaffinity(0)) or 1
+    except (AttributeError, OSError):
+        return os.cpu_count() or 1
+
+
+def default_peer_streams() -> int:
+    """``DEMODEL_PEER_STREAMS``: connections per large-object peer
+    transfer; unset, the core count clamped to 1..8 (extra sockets on a
+    1-core host only contend)."""
+    return env_int("DEMODEL_PEER_STREAMS", max(1, min(8, available_cpus())),
+                   minimum=1)

@@ -10,10 +10,16 @@ standard library's ``http.client``.
   (``DEMODEL_RETRY_DEADLINE``), over the explicit classification of
   :func:`retryable`: connect errors, resets, timeouts, 429/5xx and
   truncated bodies retry; digest mismatches and other 4xx don't.
-- :func:`request_with_retry` — one request under a policy.
+- :class:`PeerHealth` — a process-wide registry of per-peer
+  :class:`CircuitBreaker`\\ s (closed → open after consecutive failures →
+  admissible again after a cooldown), shared by every peer caller, so
+  a peer that dies mid-pull stops costing each remaining file a full
+  timeout.
+- :func:`request_with_retry` — one request under a policy, feeding a
+  peer's breaker when ``health=`` and ``peer=`` name one.
 
-The peer breakers (``PeerHealth``) come with the peer plane. Sleeps and
-clocks are injectable, so the policy unit-tests without real sleeps.
+Sleeps and clocks are injectable, so the policy and the breakers
+unit-test without real sleeps.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import ssl
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Iterator, TypeVar
+from typing import Any, Callable, ClassVar, Iterator, TypeVar
 from urllib.parse import urljoin, urlsplit
 
 from demodel_tpu_torch.utils import metrics
@@ -311,44 +317,189 @@ class RetryPolicy:
     def deadline_left(self, start: float) -> float:
         return self.deadline - (self.clock() - start)
 
-    def call(self, fn: Callable[[], T], *, what: str = "") -> T:
+    def call(self, fn: Callable[[], T], *, what: str = "",
+             peer: str | None = None,
+             health: "PeerHealth | None" = None) -> T:
         """Run ``fn`` under this policy: retryable failures back off and
-        re-try until the attempt cap or deadline."""
+        re-try until the attempt cap or deadline; every outcome feeds
+        ``health`` (when given with ``peer``) and the retry counters."""
         start = self.clock()
         attempt = 0
         while True:
             attempt += 1
             try:
-                return fn()
+                result = fn()
             except Exception as e:  # noqa: BLE001 — classified right below
+                if health is not None and peer is not None and retryable(e):
+                    health.record_failure(peer)
                 left = self.deadline_left(start)
                 if (not retryable(e) or attempt >= self.max_attempts
                         or left <= 0):
                     raise
+                if health is not None and peer is not None \
+                        and not health.admissible(peer):
+                    # the breaker opened under our own failures: more
+                    # same-peer retries are the stampede it exists to stop
+                    raise
                 delay = min(self.next_delay(attempt), max(0.0, left))
-                count_retry(delay)
+                count_retry(delay, peer)
                 log.warning("%s failed (%s: %s); retry %d/%d in %.2fs",
                             what or "wire call", type(e).__name__, e,
                             attempt, self.max_attempts - 1, delay)
                 self.sleep(delay)
+            else:
+                if health is not None and peer is not None:
+                    health.record_success(peer)
+                return result
 
 
-def count_retry(delay: float | None = None) -> None:
-    """One retry against an upstream; ``delay`` (the backoff about to be
-    slept) feeds the ``retry_delay_seconds`` histogram."""
-    metrics.HUB.inc("peer_retries_total")
+def count_retry(delay: float | None = None, peer: str | None = None) -> None:
+    """One retry against ``peer`` (or an upstream when None); ``delay``
+    (the backoff about to be slept) feeds the ``retry_delay_seconds``
+    histogram."""
+    name = "peer_retries_total"
+    metrics.HUB.inc(metrics.labeled(name, peer=peer) if peer else name)
     if delay is not None:
         metrics.HUB.observe("retry_delay_seconds", delay)
 
 
+# ----------------------------------------------------------- circuit breaker
+
+
+def default_breaker_threshold() -> int:
+    return env_int("DEMODEL_BREAKER_THRESHOLD", 3, minimum=1)
+
+
+def default_breaker_cooldown() -> float:
+    return float(env_int("DEMODEL_BREAKER_COOLDOWN", 15, minimum=1))
+
+
+#: ``peer_breaker_state`` gauge values (the reference's; its half-open
+#: state, 1, belongs to the probe the swarm's callers claim)
+STATE_CLOSED, STATE_OPEN = 0, 2
+
+
+class CircuitBreaker:
+    """Per-peer breaker: closed → open after ``threshold`` consecutive
+    failures; once ``cooldown`` has passed the peer is admissible again,
+    a success closes the breaker and a failure restarts the cooldown.
+    Thread-safe; the clock is injectable."""
+
+    def __init__(self, peer: str, threshold: int, cooldown: float,
+                 clock: Callable[[], float] = time.monotonic) -> None:
+        self.peer = peer
+        self.threshold = threshold
+        self.cooldown = cooldown
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = STATE_CLOSED
+        self._failures = 0
+        self._opened_at = 0.0
+
+    def state(self) -> int:
+        with self._lock:
+            return self._state
+
+    def admissible(self) -> bool:
+        """Could a request go to this peer now?"""
+        with self._lock:
+            return (self._state == STATE_CLOSED
+                    or self._clock() - self._opened_at >= self.cooldown)
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._failures = 0
+            if self._state != STATE_CLOSED:
+                log.info("peer %s breaker closed", self.peer)
+                self._set_state(STATE_CLOSED)
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self._failures += 1
+            if self._state == STATE_OPEN:
+                # a dial past the elapsed cooldown failed: the peer is
+                # still dead, so the cooldown starts again
+                self._opened_at = self._clock()
+                return
+            if self._failures >= self.threshold:
+                self._opened_at = self._clock()
+                self._set_state(STATE_OPEN)
+                metrics.HUB.inc(metrics.labeled(
+                    "peer_breaker_open_total", peer=self.peer))
+                log.warning("peer %s breaker OPEN (%d consecutive "
+                            "failures); cooling down %.1fs", self.peer,
+                            self._failures, self.cooldown)
+
+    def _set_state(self, state: int) -> None:
+        # caller holds self._lock
+        self._state = state
+        metrics.HUB.set_gauge(
+            metrics.labeled("peer_breaker_state", peer=self.peer),
+            float(state))
+
+
+class PeerHealth:
+    """Process-wide breaker registry, shared by every peer caller so one
+    component's failures protect every other component's critical path."""
+
+    _shared: ClassVar["PeerHealth | None"] = None
+    _shared_lock: ClassVar[threading.Lock] = threading.Lock()
+
+    def __init__(self, threshold: int | None = None,
+                 cooldown: float | None = None,
+                 clock: Callable[[], float] = time.monotonic) -> None:
+        self.threshold = (threshold if threshold is not None
+                          else default_breaker_threshold())
+        self.cooldown = (cooldown if cooldown is not None
+                         else default_breaker_cooldown())
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._breakers: dict[str, CircuitBreaker] = {}
+
+    @classmethod
+    def shared(cls) -> "PeerHealth":
+        with cls._shared_lock:
+            if cls._shared is None:
+                cls._shared = cls()
+            return cls._shared
+
+    @classmethod
+    def reset_shared(cls) -> None:
+        """Drop the process-wide registry (tests)."""
+        with cls._shared_lock:
+            cls._shared = None
+
+    def breaker(self, peer: str) -> CircuitBreaker:
+        peer = peer.rstrip("/")
+        with self._lock:
+            b = self._breakers.get(peer)
+            if b is None:
+                b = self._breakers[peer] = CircuitBreaker(
+                    peer, self.threshold, self.cooldown, self._clock)
+            return b
+
+    def admissible(self, peer: str) -> bool:
+        return self.breaker(peer).admissible()
+
+    def record_success(self, peer: str) -> None:
+        self.breaker(peer).record_success()
+
+    def record_failure(self, peer: str) -> None:
+        self.breaker(peer).record_failure()
+
+
 def request_with_retry(client: HTTPClient, method: str, url: str, *,
                        policy: RetryPolicy | None = None,
+                       health: PeerHealth | None = None,
+                       peer: str | None = None,
                        ok_statuses: tuple[int, ...] = (),
                        check_status: bool = True, what: str = "",
                        **kw: Any) -> Response:
     """One HTTP request under ``policy``. ``ok_statuses`` pass through;
     other non-2xx raise :class:`HTTPError` (retried for 408/429/5xx
-    only); ``check_status=False`` returns whatever arrived."""
+    only); ``check_status=False`` returns whatever arrived. With
+    ``health`` and ``peer``, every outcome feeds that peer's breaker
+    (admission is the caller's: ``health.admissible`` before dialing)."""
     pol = policy if policy is not None else RetryPolicy()
 
     def one_attempt() -> Response:
@@ -357,4 +508,5 @@ def request_with_retry(client: HTTPClient, method: str, url: str, *,
             r.raise_for_status()
         return r
 
-    return pol.call(one_attempt, what=what or f"{method} {url}")
+    return pol.call(one_attempt, what=what or f"{method} {url}", peer=peer,
+                    health=health)

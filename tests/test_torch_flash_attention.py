@@ -256,22 +256,79 @@ def test_plan_copies_only_what_tma_cannot_read():
 
 
 @pytest.mark.parametrize("q,k,err", [
-    (_bf16(1, 8, 4, 32), _bf16(1, 8, 4, 32), ValueError),       # D=32
+    # head dims without a tensor-core instantiation go to the CUDA cores
+    (_bf16(1, 8, 4, 32), _bf16(1, 8, 4, 32), "simt_bf16"),     # D=32
     # float16 has its tensor-core kernel: planned, not refused
     (torch.zeros(1, 8, 4, 64, dtype=torch.float16),
-     torch.zeros(1, 8, 4, 64, dtype=torch.float16), None),
+     torch.zeros(1, 8, 4, 64, dtype=torch.float16), "wgmma_f16"),
     (torch.zeros(1, 8, 4, 64, dtype=torch.float64),
      torch.zeros(1, 8, 4, 64, dtype=torch.float64), TypeError),
     (_bf16(1, 8, 4, 64), torch.zeros(1, 8, 4, 64), TypeError),  # mixed
     (_bf16(1, 8, 4, 64), torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16,
                                      device="meta"), ValueError),
-], ids=["head_dim_32", "float16", "float64", "mixed_dtypes", "two_devices"])
+    (_bf16(1, 8, 4, 264), _bf16(1, 8, 4, 264), ValueError),     # D > 256
+], ids=["head_dim_32", "float16", "float64", "mixed_dtypes", "two_devices",
+        "head_dim_264"])
 def test_plan_rejects_what_no_kernel_takes(q, k, err):
-    if err is None:
-        assert tfa.launch_plan(q, k, k).kernel == "wgmma_f16"
+    if isinstance(err, str):
+        assert tfa.launch_plan(q, k, k).kernel == err
         return
     with pytest.raises(err):
         tfa.launch_plan(q, k, k)
+
+
+#: head dims no tensor-core instantiation takes, with the CUDA-core
+#: kernel's padded head dim for each
+ODD_HEAD_DIMS = {8: 32, 32: 32, 80: 128, 96: 128, 256: 256}
+
+
+@pytest.mark.parametrize("dtype,suffix", [
+    (torch.float32, "f32"), (torch.bfloat16, "bf16"),
+    (torch.float16, "f16")], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("D", sorted(ODD_HEAD_DIMS))
+def test_plan_every_head_dim_goes_to_cuda_cores(D, dtype, suffix):
+    """Every float32, bf16 or f16 head dim without a tensor-core
+    instantiation: the CUDA-core kernel in that type, 32 rows a block,
+    shared memory for the padded head dim (98,432 bytes at 256, above
+    the 48 KB default)."""
+    q = torch.zeros(1, 512, 32, D, dtype=dtype)
+    k = torch.zeros(1, 512, 8, D, dtype=dtype)
+    plan = tfa.launch_plan(q, k, k, kv_len=512)
+    dp = ODD_HEAD_DIMS[D]
+    assert plan.kernel == f"simt_{suffix}"
+    assert plan.code == tfa.KERNELS[plan.kernel][0]
+    assert (plan.grid, plan.threads) == ((16, 32, 1), 256)
+    assert plan.smem_bytes == 4 * (32 * dp + 32 * (dp + 1) + 32 * dp)
+    assert plan.copy == (False, False, False)
+    assert plan.kernel in tfa.launches_by_kernel
+    if D == 256:
+        assert plan.smem_bytes == 98432
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", sorted(ODD_HEAD_DIMS))
+def test_flash_matches_jax_kernel_at_every_head_dim(D, dtype):
+    """The function the CUDA-core kernel computes at each head dim it now
+    takes, against the Pallas kernel in interpret mode: GQA, causal, a
+    per-batch kv_len; f32 at 2e-5, bf16 at 2e-2 (the reference's
+    tolerances)."""
+    q, k, v = _inputs(2, 20, 24, 4, 2, D, seed=D)
+    kv_len = [24, 13]
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want, want_lse = jfa.flash_attention(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), kv_len=_arg(kv_len, "jax"),
+        causal=True, block_q=8, block_k=8, return_lse=True)
+    tdt = getattr(torch, dtype)
+    got, got_lse = tfa.flash_attention(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+        kv_len=_arg(kv_len, "torch"), causal=True, return_lse=True)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               rtol=tol, atol=tol)
 
 
 def test_plan_rejects_windows_outside_int32():
@@ -333,21 +390,27 @@ def test_routing_default_is_the_device(monkeypatch, device, want):
 
 
 @pytest.mark.parametrize("dtype,D,err", [
-    (torch.float16, 8, ValueError),       # LlamaConfig.tiny()
-    (torch.float32, 32, ValueError),
-    (torch.bfloat16, 96, ValueError),
+    (torch.float16, 8, "simt_f16"),       # LlamaConfig.tiny() in f16
+    (torch.float32, 32, "simt_f32"),
+    (torch.bfloat16, 96, "simt_bf16"),
     (torch.float64, 128, TypeError),
-], ids=["f16_d8", "f32_d32", "bf16_d96", "f64_d128"])
+    (torch.bfloat16, 320, ValueError),
+], ids=["f16_d8", "f32_d32", "bf16_d96", "f64_d128", "bf16_d320"])
 def test_cuda_shape_without_kernel_raises_not_einsum(monkeypatch, dtype, D,
                                                      err):
-    """Unset, a CUDA shape that no kernel takes still routes to the
-    kernel, whose plan refuses it: nothing on the card drops to einsum
-    unless the caller says ``DEMODEL_FLASH_ATTN=0``."""
+    """Unset, every CUDA shape routes to the kernel: each float32, bf16
+    or f16 head dim up to 256 is planned on a kernel, and what no kernel
+    takes (float64, a head dim past 256) raises in the plan. Nothing on
+    the card drops to einsum unless the caller says
+    ``DEMODEL_FLASH_ATTN=0``."""
     monkeypatch.delenv("DEMODEL_FLASH_ATTN", raising=False)
     assert tfd.use_flash_attention("cuda")
     q = torch.empty(1, 4, 8, D, dtype=dtype, device="meta")
-    with pytest.raises(err):
-        tfa.launch_plan(q, q[:, :, :2], q[:, :, :2])
+    if isinstance(err, str):
+        assert tfa.launch_plan(q, q[:, :, :2], q[:, :, :2]).kernel == err
+    else:
+        with pytest.raises(err):
+            tfa.launch_plan(q, q[:, :, :2], q[:, :, :2])
     monkeypatch.setenv("DEMODEL_FLASH_ATTN", "0")
     assert not tfd.use_flash_attention("cuda")
     monkeypatch.setenv("DEMODEL_FLASH_ATTN", "1")
@@ -359,8 +422,8 @@ def test_cuda_shape_without_kernel_raises_not_einsum(monkeypatch, dtype, D,
 def test_llama_asks_the_rule_per_layer(monkeypatch, env, want_calls):
     """The model asks the rule with its tensors' device at every layer:
     as if they were on CUDA, the tiny config's head dim of 8 reaches the
-    kernel wrapper (which on the card raises); ``DEMODEL_FLASH_ATTN=0``
-    keeps it on einsum."""
+    kernel wrapper (on the card, the CUDA-core kernel);
+    ``DEMODEL_FLASH_ATTN=0`` keeps it on einsum."""
     from demodel_tpu_torch.models import common as tcommon
     from demodel_tpu_torch.models import llama as tl
 
@@ -385,3 +448,40 @@ def test_llama_asks_the_rule_per_layer(monkeypatch, env, want_calls):
     tl.step_prefill(params, torch.zeros(1, 5, dtype=torch.long), cfg)
     assert asked == ["cpu"] * cfg.num_hidden_layers
     assert len(called) == want_calls
+
+
+@pytest.mark.parametrize("dtype,kernel", [("float32", "simt_f32"),
+                                          ("bfloat16", "simt_bf16"),
+                                          ("float16", "simt_f16")])
+def test_tiny_config_goes_through_the_cuda_core_kernel(monkeypatch, dtype,
+                                                       kernel):
+    """``LlamaConfig.tiny()`` (head dim 8): its prefill's q/k/v plan onto
+    the CUDA-core kernel in the model's type, and its fp32 logits through
+    the kernel's plain version stay within 2e-4 of the JAX package's."""
+    import dataclasses
+
+    from demodel_tpu.models import llama as jl
+    from demodel_tpu_torch.models import convert
+    from demodel_tpu_torch.models import llama as tl
+
+    tcfg = dataclasses.replace(tl.LlamaConfig.tiny(), dtype=dtype)
+    T = 9
+    q = torch.zeros(1, T, tcfg.num_attention_heads, tcfg.head_dim,
+                    dtype=tcfg.torch_dtype)
+    k = torch.zeros(1, T, tcfg.num_key_value_heads, tcfg.head_dim,
+                    dtype=tcfg.torch_dtype)
+    assert tfa.launch_plan(q, k, k, kv_len=T).kernel == kernel
+    if dtype != "float32":
+        return
+    monkeypatch.setenv("DEMODEL_FLASH_ATTN", "1")
+    jcfg = jl.LlamaConfig.tiny()
+    jparams = jax.jit(jl.init_params, static_argnums=(1,))(
+        jax.random.key(4), jcfg)
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                        tcfg, device="cpu")
+    tok = np.random.default_rng(4).integers(0, tcfg.vocab_size, (1, T))
+    want = jax.jit(jl.forward, static_argnums=(2,))(jparams,
+                                                    jnp.asarray(tok), jcfg)
+    got = tl.forward(tparams, torch.from_numpy(tok), tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)

@@ -13,7 +13,8 @@ semantics on both packages against one origin (a body cut mid-way
 resumes with one retry; a wrong digest raises at once; the native
 parallel fetch lands what the reference's lands), the wire policy's
 classification, the streaming sink's byte budget, and the failure paths
-(unsupported config fields and families, the Ollama source, peers).
+(unsupported config fields and families). The Ollama source and peers
+are held in ``test_torch_ollama.py`` and ``test_torch_peer.py``.
 """
 
 from __future__ import annotations
@@ -310,33 +311,6 @@ def test_model_from_pull_refuses_other_families(tmp_path, model_type, err,
                                   mesh=make_mesh(device="cpu"))
     finally:
         store.close()
-
-
-@pytest.mark.parametrize("how", ["ollama", "peers", "env_peers"])
-def test_pull_refuses_what_this_slice_does_not_port(tmp_path, monkeypatch,
-                                                    how):
-    """The Ollama source and peers raise before any request: no pull
-    goes ahead without what it was asked for."""
-    handler = make_hf_handler({MODEL: _llama_files()})
-    tcfg, _ = _configs(tmp_path, how)
-    kw = {}
-    if how == "ollama":
-        kw["source"] = "ollama"
-    elif how == "peers":
-        kw["peers"] = ["http://127.0.0.1:9"]
-    else:
-        monkeypatch.setenv("DEMODEL_PEERS", "http://127.0.0.1:9")
-    with FakeUpstream(handler=handler) as up:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdelivery.pull_to_hbm(MODEL, tcfg,
-                                  endpoint=f"http://{up.authority}",
-                                  mesh=make_mesh(device="cpu"), **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.load_model(MODEL, tcfg, endpoint=f"http://{up.authority}",
-                              device="cpu", **kw)
-    assert handler.request_counts == {}
-    assert not (tcfg.cache_dir / "proxy").exists()
-    assert tserve.current() is None
 
 
 # ------------------------------------------------------------ the fetcher
