@@ -14,21 +14,31 @@ Phases, each printing one line:
    not used);
 2. build — nvcc builds the flash-attention and dequant kernels (csrc/)
    for sm_90a and g++ the store library (native/), one compiler per
-   library, started together; ``cuobjdump -sass`` counts the
-   tensor-core (HGMMA) instructions of each bf16 and f16 flash
-   instantiation, and none fails the phase;
+   library, started together; the library must hold exactly the flash
+   instantiations ``wgmma_{bf16,f16}_d{64,128,256}`` (any D up to the
+   padded one), the same with ``_exact`` (D equal to it, no run-time
+   guard) and ``simt_f32_d{32,64,128,256}``, each with 0 spill bytes
+   in its ptxas line (registers, spills and ptxas's injected
+   ``warpgroup.arrive`` count printed per instantiation), and
+   ``cuobjdump -sass`` must count tensor-core (HGMMA) instructions in
+   each ``wgmma`` one;
 3. kernel — the flash kernels against their plain PyTorch version on the
    card at every main-path prompt length (17, 64, 96, 128, 512), at
    2048, and in every masking case (GQA, ragged decode, a kv_len-0 row,
    Sq > kv_len, non-causal, no keys at all, D=64, strided and misaligned
-   k/v views, f32, return_lse), f16 at 17, 512 and 2048, the CUDA-core
-   kernel at head dims 8, 32, 80, 96 and 256 (S=512, H=32, G=8) and at
-   the tiny config's prefill shape, each in f32, bf16 and f16, with the
-   call time (CUDA events), the device time per call (torch.profiler,
-   or the call time where every trace lost the work) of the kernel and
-   of SDPA, the plain version's time and the roofline bound; then a
-   ``floors`` line that sets the redesign's targets beside what was
-   measured;
+   k/v views, f32, return_lse), f16 at 17, 512 and 2048, head dims 8,
+   32, 80, 96 and 256 (S=512, H=32, G=8) and the tiny config's prefill
+   shape in f32 (CUDA cores), bf16 and f16 (tensor cores), OpenLLaMA-3B's
+   D=100 at H=G=32 in bf16 and f16 at S=512 and 2048, from a view of
+   its KV cache, and with GQA (the padded copy), odd head dims (D=99
+   through the row map, D=33 from views padded to 40) in bf16 and f16,
+   each with the call time
+   (CUDA events), the device time per call (torch.profiler, or the call
+   time where every trace lost the work) of the kernel and of SDPA, the
+   plain version's time and the roofline bound; then a ``floors`` line
+   that sets the first redesign's targets beside what was measured, and a
+   ``head_dim_floors`` line with the bf16/f16 device time over SDPA's at
+   D 80, 96, 100 and 256 (target 2x, reported);
 4. dequant — each GGUF dequant kernel (csrc/dequant.cu: Q8_0, Q4_0 and
    the five K-quants) against its plain PyTorch version on the card at
    the ffn_gate shape 11008×4096 in bf16 and f32, and at 1, 3, 257 and 0
@@ -76,9 +86,17 @@ Phases, each printing one line:
    17-token prompt's tokens equal the pull phase's, K1 launches all on
    ``wgmma_f16``; then the gossip thread and the proxy stop;
 11. tiny — ``LlamaConfig.tiny()`` (head dim 8) in f32, bf16 and f16:
-   served through K1's CUDA-core kernel by default, engine tokens equal
-   to ``generate``, launches on ``simt_*``; under the caller's explicit
-   ``DEMODEL_FLASH_ATTN=0`` served on the einsum path with no K1 launch.
+   served through K1 by default (f32 on ``simt_f32``, bf16 and f16 on
+   ``wgmma_*`` at padded head dim 64), engine tokens equal to
+   ``generate``; under the caller's explicit ``DEMODEL_FLASH_ATTN=0``
+   served on the einsum path with no K1 launch;
+12. openllama — OpenLLaMA-3B's widths (its ``config.json``: hidden 3200,
+   32 heads of 100, 26 layers, intermediate 8640, f16; seeded random
+   weights, 6.85 GB) on the card: prefill logits of the kernel path
+   against the plain path at 17, 128, 512 and 2048 tokens, K1's share of
+   the 512-token prefill's device time, then ``serve.boot`` and prompts
+   of 17, 128 and 512 tokens over HTTP with first tokens the argmax of
+   their kernel-path logits and all 78 K1 launches on ``wgmma_f16``.
 
 Then the card line from nvidia-smi, a JSON line with the kernels, and
 last ``{"ok": true, "device": {...}}``. Any failed phase raises (exit
@@ -180,6 +198,28 @@ def phase_device() -> str:
     return smi
 
 
+#: the flash instantiations the library must hold: the tensor-core kernel
+#: in bf16 and f16 at each padded head dim, for any D up to it and for D
+#: equal to it (``_exact``), the CUDA-core one in f32
+FLASH_INSTANTIATIONS = sorted(
+    [f"wgmma_{t}_d{dp}{x}" for t in ("bf16", "f16") for dp in (64, 128, 256)
+     for x in ("", "_exact")]
+    + [f"simt_f32_d{dp}" for dp in (32, 64, 128, 256)])
+
+
+def _instantiation(fn: str) -> str | None:
+    """``wgmma_bf16_d128`` for the mangled ``flash_fwd_wgmma<bf16, 128,
+    false>`` (``_exact`` appended for ``true``), ``simt_f32_d64`` for
+    ``flash_fwd_kernel<64>``; None for the rest."""
+    m = re.search(r"flash_fwd_wgmmaI(6__half|13__nv_bfloat16)"
+                  r"Li(\d+)ELb([01])E", fn)
+    if m:
+        return (f"wgmma_{'f16' if m[1] == '6__half' else 'bf16'}_d{m[2]}"
+                f"{'_exact' if m[3] == '1' else ''}")
+    m = re.search(r"flash_fwd_kernelILi(\d+)E", fn)
+    return f"simt_f32_d{m[1]}" if m else None
+
+
 def _hgmma_counts(lib) -> dict[str, int]:
     """Tensor-core (HGMMA) instructions in each flash kernel function of
     the built library, from ``cuobjdump -sass``."""
@@ -195,19 +235,44 @@ def _hgmma_counts(lib) -> dict[str, int]:
     for ln in sass.splitlines():
         s = ln.strip()
         if s.startswith("Function :"):
-            fn = s.split(":", 1)[1].strip()
-            counts[fn] = 0
+            fn = _instantiation(s.split(":", 1)[1].strip())
+            if fn is not None:
+                counts[fn] = 0
         elif fn is not None and "HGMMA" in s:
             counts[fn] += 1
-    named = {}
-    for fn, n in counts.items():
-        m = re.search(r"flash_fwd_(wgmma|kernel)I(6__half|13__nv_bfloat16|f)"
-                      r"Li(\d+)E", fn)
+    return counts
+
+
+def _ptxas_by_instantiation(log: str) -> dict[str, dict]:
+    """Registers and spill bytes of each flash instantiation, from the
+    ``-Xptxas=-v`` lines of the build log, and how many times ptxas
+    injected a ``warpgroup.arrive`` among its wgmmas (advisory C7519: a
+    wait the source did not ask for)."""
+    out: dict[str, dict] = {}
+    fn = None
+    for ln in log.splitlines():
+        m = re.search(r"\(C7519\).* in function '(\w+)'", ln)
+        if m and _instantiation(m[1]) is not None:
+            entry = out.setdefault(_instantiation(m[1]), {})
+            entry["arrives_injected"] = entry.get("arrives_injected", 0) + 1
+            continue
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w]+)", ln)
         if m:
-            kind = "wgmma" if m[1] == "wgmma" else "simt"
-            dtype = {"6__half": "f16", "f": "f32"}.get(m[2], "bf16")
-            named[f"{kind}_{dtype}_d{m[3]}"] = n
-    return named
+            fn = _instantiation(m[1])
+            if fn is not None:
+                out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[fn]["spill_bytes"] = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[fn]["registers"] = int(m[1])
+    return out
 
 
 def phase_build() -> None:
@@ -229,19 +294,26 @@ def phase_build() -> None:
     dq._library()
     native.lib()
     secs = time.perf_counter() - t0
-    ptxas = {k: [ln.strip() for ln in libs[k].with_suffix(".log").read_text()
-                 .splitlines() if "registers" in ln or "spill" in ln]
-             for k in ("flash_attention", "dequant")}
+    flash_ptxas = _ptxas_by_instantiation(
+        libs["flash_attention"].with_suffix(".log").read_text())
+    dequant_ptxas = [ln.strip() for ln in libs["dequant"].with_suffix(".log")
+                     .read_text().splitlines()
+                     if "registers" in ln or "spill" in ln]
     hgmma = _hgmma_counts(libs["flash_attention"])
     _say("build", seconds=round(secs, 3),
-         libraries={k: lib.name for k, lib in libs.items()}, ptxas=ptxas,
+         libraries={k: lib.name for k, lib in libs.items()},
+         ptxas={"flash_attention": flash_ptxas, "dequant": dequant_ptxas},
          hgmma=hgmma)
     tc = {k: n for k, n in hgmma.items() if k.startswith("wgmma")}
-    if sorted(tc) != ["wgmma_bf16_d128", "wgmma_bf16_d64",
-                      "wgmma_f16_d128", "wgmma_f16_d64"] or \
-            min(tc.values()) == 0:
-        raise AssertionError(f"bf16 or f16 flash kernels without tensor-"
-                             f"core instructions in their SASS: {hgmma}")
+    if sorted(hgmma) != FLASH_INSTANTIATIONS or min(tc.values()) == 0:
+        raise AssertionError(f"flash instantiations {sorted(hgmma)} (want "
+                             f"{FLASH_INSTANTIATIONS}), or bf16/f16 ones "
+                             f"without tensor-core instructions: {hgmma}")
+    spills = {k: v for k, v in flash_ptxas.items()
+              if v.get("spill_bytes", 1) != 0}
+    if sorted(flash_ptxas) != FLASH_INSTANTIATIONS or spills:
+        raise AssertionError(f"flash instantiations spill or lack a ptxas "
+                             f"line: {flash_ptxas}")
 
 
 # --------------------------------------------------------------- phase 3
@@ -253,7 +325,10 @@ def _case(name, B, Sq, Sk, H, G, D, dtype, causal=True, kv_len=None,
     as a per-batch tensor. ``view="strided"``: k is a column slice of
     padded rows (a stride TMA cannot take, so the wrapper copies it) and
     v a head slice of a wider buffer (read in place through its
-    strides)."""
+    strides). ``view="cache"``: k and v are the first Sk rows of a
+    2048-row KV cache (read in place). ``view="padded"``: q, k and v are
+    the first D columns of buffers whose head dim is padded to a
+    multiple of 8 (read in place through the 4-D map)."""
     return dict(name=name, B=B, Sq=Sq, Sk=Sk, H=H, G=G, D=D, dtype=dtype,
                 causal=causal, kv_len=kv_len, offset=offset, lse=lse,
                 view=view, seed=seed)
@@ -285,20 +360,42 @@ CASES = [
     _case("f16_prefill_s17", 1, 17, 17, 32, 32, 128, "float16"),
     _case("f16_prefill_s512", 1, 512, 512, 32, 32, 128, "float16", lse=True),
     _case("f16_prefill_s2048", 1, 2048, 2048, 32, 32, 128, "float16"),
-    # head dims without a tensor-core instantiation: the CUDA-core kernel
-    # in each type (B=1, S=512, H=32, G=8, causal)
+    # other head dims: the tensor-core kernel at the padded head dim in bf16
+    # and f16, the CUDA-core kernel in f32 (B=1, S=512, H=32, G=8, causal)
     *(_case(f"d{D}_{dt}", 1, 512, 512, 32, 8, D, dt)
       for D in (8, 32, 80, 96, 256)
       for dt in ("float32", "bfloat16", "float16")),
+    # OpenLLaMA-3B's prefill (H=G=32, D=100: a head stride TMA cannot
+    # map, so q, k and v go through the row map), and k/v read from its
+    # KV cache with kv_len < Sk
+    *(_case(f"openllama_s{S}_{dt}", 1, S, S, 32, 32, 100, dt)
+      for S in (512, 2048) for dt in ("bfloat16", "float16")),
+    _case("openllama_kv_cache_float16", 1, 512, 1024, 32, 32, 100,
+          "float16", kv_len=900, lse=True, view="cache"),
+    # D=100 with GQA: q and k heads at different shifts, so the plan pads
+    # copies of q and k for the 4-D map (v through the row map)
+    _case("d100_gqa_float16", 1, 512, 512, 32, 8, 100, "float16"),
+    # odd head dims, stored one column at a time: D=99 with packed heads
+    # (row map, the heads at every shift 0..7), D=33 read from views
+    # padded to 40 columns (4-D map)
+    *(_case(f"d99_{dt}", 1, 512, 512, 32, 32, 99, dt)
+      for dt in ("bfloat16", "float16")),
+    *(_case(f"d33_padded_{dt}", 1, 512, 512, 32, 8, 33, dt, view="padded")
+      for dt in ("bfloat16", "float16")),
     # LlamaConfig.tiny()'s prefill in the tiny phase (12 tokens, 8 heads
     # over 2, head dim 8)
     *(_case(f"tiny_prefill_{dt}", 1, 12, 12, 8, 2, 8, dt)
       for dt in ("float32", "bfloat16", "float16")),
 ]
-#: the CUDA-core kernel's rows of the kernels line: the tiny phase's
-#: shape, then head dims 80 and 256 at S=512
-SIMT_ROWS = {"float32": "simt_f32", "bfloat16": "simt_bf16",
-             "float16": "simt_f16"}
+#: the K1 kernel each dtype takes at every head dim
+K1_BY_DTYPE = {"float32": "simt_f32", "bfloat16": "wgmma_bf16",
+               "float16": "wgmma_f16"}
+#: the S=512 cases the redesign of bf16/f16 at other head dims aims at
+#: (device time at most HEAD_DIM_TARGET times SDPA's), reported
+HEAD_DIM_CASES = [f"{c}_{dt}" for c in ("d80", "d96", "openllama_s512",
+                                        "d256")
+                  for dt in ("bfloat16", "float16")]
+HEAD_DIM_TARGET = 2.0
 #: device-time attribution: K1's own kernels, and everything else
 K1_KERNELS = ("flash_fwd_wgmma", "flash_fwd_kernel")
 
@@ -353,14 +450,23 @@ def _kernel_case(c) -> dict:
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
     q = rnd(B, Sq, H, D)
-    if c["view"] == "strided":
+    if c["view"] == "padded":
+        w = -(-D // 8) * 8
+        q = rnd(B, Sq, H, w)[..., :D]
+        k, v = rnd(B, Sk, G, w)[..., :D], rnd(B, Sk, G, w)[..., :D]
+    elif c["view"] == "strided":
         k = rnd(B, Sk, G, D + 4)[..., :D]      # 2(D+4)-byte rows
         v = rnd(B, Sk, 2 * G, D)[:, :, G:]      # every other head block
+    elif c["view"] == "cache":
+        k, v = rnd(B, 2048, G, D)[:, :Sk], rnd(B, 2048, G, D)[:, :Sk]
     else:
         k, v = rnd(B, Sk, G, D), rnd(B, Sk, G, D)
     kv, off = _window(c["kv_len"]), _window(c["offset"])
     scale = D ** -0.5
     plan = fa.launch_plan(q, k, v, kv, off)
+    if plan.kernel != K1_BY_DTYPE[c["dtype"]]:
+        raise AssertionError(f"kernel case {c['name']}: planned on "
+                             f"{plan.kernel}")
 
     def kernel(lse=True):
         return fa.flash_attention(q, k, v, kv_len=kv, causal=c["causal"],
@@ -428,7 +534,8 @@ def _kernel_case(c) -> dict:
     return {"case": c["name"], "shape": [B, Sq, Sk, H, G, D],
             "dtype": c["dtype"], "causal": c["causal"],
             "kernel": plan.kernel, "windows": plan.windows,
-            "copies": list(plan.copy), "max_abs_err": err,
+            "copies": list(plan.copy), "maps": list(plan.maps),
+            "max_abs_err": err,
             "lse_err": lse_err, "tol": tol, "ms": ms,
             "device_ms": dev["k1"], "other_device_ms": dev["other"],
             "device_ms_by": dev_by,
@@ -462,6 +569,19 @@ def phase_kernel() -> dict[str, dict]:
          k1_over_sdpa_call={n: rows[f"prefill_s{n}"]["ms"]
                             / rows[f"prefill_s{n}"]["library_ms"]
                             for n in (17, 64, 96, 128, 512, 2048)})
+    # bf16/f16 at head dims other than 64 and 128 (S=512): device time
+    # over SDPA's in this run, both from the profiler, else not measured
+    ratio = {n: (rows[n]["device_ms"] / rows[n]["library_device_ms"]
+                 if rows[n]["device_ms_by"] == rows[n]["library_device_ms_by"]
+                 == "profiler" else None) for n in HEAD_DIM_CASES}
+    _say("head_dim_floors", target_over_sdpa_device=HEAD_DIM_TARGET,
+         over_sdpa_device=ratio,
+         met={n: r is not None and r <= HEAD_DIM_TARGET
+              for n, r in ratio.items()},
+         device_ms={n: rows[n]["device_ms"] for n in HEAD_DIM_CASES},
+         library_device_ms={n: rows[n]["library_device_ms"]
+                            for n in HEAD_DIM_CASES},
+         bound_ms={n: rows[n]["bound_ms"] for n in HEAD_DIM_CASES})
     return rows
 
 
@@ -859,46 +979,20 @@ def _build_gguf(kind: str, n_layers: int, seed: int):
 
 
 def _device_ms(run, groups, counts_ok=None, tries: int = 5):
-    """Summed device time (ms) during ``run()`` of the device activities
-    (kernels, copies) whose names each group's predicate accepts, from
-    the CUDA profiler's trace, and the activities' count by name.
-    ``counts_ok`` maps a group to a check of its activities' counts by
-    name: work that launched but is missing from the trace fails it, and
-    ``run`` is measured again, up to ``tries`` times. Then this prints a
-    ``trace_lost`` line and returns None: a lost trace is never reported
-    as a fast one. (CUPTI drops records now and then on the H100: some
-    of one delivery's 16 launches, half of 20 SDPA calls, or a whole
-    trace.)"""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """:func:`demodel_tpu_torch.probes.device_time.device_ms`, printing a
+    ``trace_lost`` line where every trace lost launched work."""
+    from demodel_tpu_torch.probes import device_time
 
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        ms = {k: sum(e.device_time_total for e in events if match(e.key))
-              / 1e3 for k, match in groups.items()}
-        counts = {k: {e.key: e.count for e in events if match(e.key)}
-                  for k, match in groups.items()}
-        bad = {k: counts[k] for k, ok in (counts_ok or {}).items()
-               if not ok(counts[k])}
-        if not bad:
-            return ms, {e.key: e.count for e in events}
-    _say("trace_lost", groups=list(groups), held=bad, tries=tries)
-    return None
+    got = device_time.device_ms(run, groups, counts_ok, tries)
+    if got is None:
+        _say("trace_lost", groups=list(groups), tries=tries)
+    return got
 
 
 def _every_call(iters: int):
-    """A ``counts_ok`` check for ``iters`` calls that launch the same
-    work each: every activity a whole number of times a call, and at
-    least one that is not a memset or a copy."""
-    def ok(c: dict[str, int]) -> bool:
-        return (all(n > 0 and n % iters == 0 for n in c.values())
-                and any("Memset" not in k and "Memcpy" not in k for k in c))
-    return ok
+    from demodel_tpu_torch.probes import device_time
+
+    return device_time.every_call(iters)
 
 
 #: the dequant kernels' names, for their device-time sum
@@ -1718,10 +1812,11 @@ def phase_peer(rig: _HubRig, pulled: dict) -> int:
 
 def phase_tiny() -> dict[str, int]:
     """``LlamaConfig.tiny()`` (head dim 8) on the card in f32, bf16 and
-    f16. By default it is served through K1's CUDA-core kernel in its
-    type, engine tokens equal to ``generate``; with the caller's
-    explicit ``DEMODEL_FLASH_ATTN=0`` on the einsum path, no K1 launch.
-    Returns the K1 launches by kernel over the default runs."""
+    f16. By default it is served through K1 (f32 on the CUDA-core
+    kernel, bf16 and f16 on the tensor-core kernel at padded head dim
+    64), engine tokens equal to ``generate``; with the caller's explicit
+    ``DEMODEL_FLASH_ATTN=0`` on the einsum path, no K1 launch. Returns
+    the K1 launches by kernel over the default runs."""
     import dataclasses
 
     import torch
@@ -1742,9 +1837,9 @@ def phase_tiny() -> dict[str, int]:
             serve.install(None)
         return got, want, dict(fa.launches_by_kernel)
 
-    total = {k: 0 for k in SIMT_ROWS.values()}
+    total = {k: 0 for k in K1_BY_DTYPE.values()}
     rows = {}
-    for i, (dtype, kernel) in enumerate(SIMT_ROWS.items()):
+    for i, (dtype, kernel) in enumerate(K1_BY_DTYPE.items()):
         cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=dtype)
         params = llama.init_params(torch.Generator("cuda").manual_seed(9 + i),
                                    cfg, "cuda")
@@ -1769,6 +1864,119 @@ def phase_tiny() -> dict[str, int]:
     _say("tiny", head_dim=llama.LlamaConfig.tiny().head_dim,
          k1_launches=total, runs=rows)
     return total
+
+
+#: OpenLLaMA-3B's config.json (openlm-research/open_llama_3b and
+#: open_llama_3b_v2 on the HuggingFace Hub): head dim 3200 / 32 = 100
+OPENLLAMA_3B = {"model_type": "llama", "hidden_size": 3200,
+                "intermediate_size": 8640, "num_attention_heads": 32,
+                "num_hidden_layers": 26, "rms_norm_eps": 1e-6,
+                "vocab_size": 32000, "torch_dtype": "float16"}
+OPENLLAMA_PROMPTS = (17, 128, 512, 2048)   # logits held against plain
+OPENLLAMA_SERVED = (17, 128, 512)          # served over HTTP
+
+
+def phase_openllama() -> int:
+    """OpenLLaMA-3B's widths at full depth (26 layers, f16, seeded random
+    weights, about 6.9 GB) on the card: prefill logits of the kernel path
+    against the plain path at 17, 128, 512 and 2048 tokens, K1's share of
+    the 512-token prefill's device time, then ``serve.boot`` and three
+    prompts over HTTP ``/generate``, first tokens the argmax of their
+    kernel-path logits. Returns the engine's K1 launches, all on
+    ``wgmma_f16`` (26 per prompt)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from demodel_tpu_torch import serve
+    from demodel_tpu_torch.models import llama
+    from demodel_tpu_torch.ops import flash_attention as fa
+    from demodel_tpu_torch.serve import http
+
+    cfg = dataclasses.replace(llama.LlamaConfig.from_hf(OPENLLAMA_3B),
+                              dtype=OPENLLAMA_3B["torch_dtype"])
+    if cfg.head_dim != 100:
+        raise AssertionError(f"openllama: head dim {cfg.head_dim}")
+    t0 = time.perf_counter()
+    params = llama.init_params(torch.Generator("cuda").manual_seed(11), cfg,
+                               "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in (
+        params["embed"], params["final_norm"], params["lm_head"],
+        *(w for layer in params["layers"] for w in layer.values())))
+    pgen = torch.Generator().manual_seed(12)
+    prompts = {n: _prompt(pgen, n, cfg.vocab_size) for n in OPENLLAMA_PROMPTS}
+
+    # prefill logits, kernel path vs plain path (comparison only)
+    rel_errs, first = {}, {}
+    with torch.inference_mode():
+        for n, p in prompts.items():
+            toks = torch.tensor([p], device="cuda")
+            got = llama.step_prefill(params, toks, cfg)[0][0].float()
+            os.environ["DEMODEL_FLASH_ATTN"] = "0"
+            try:
+                ref = llama.step_prefill(params, toks, cfg)[0][0].float()
+            finally:
+                del os.environ["DEMODEL_FLASH_ATTN"]
+            rel_errs[n] = ((got - ref).norm() / ref.norm()).item()
+            first[n] = int(torch.argmax(got).item())
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"openllama: {n}-token logits not "
+                                     "finite")
+        if max(rel_errs.values()) > LOGITS_REL_TOL or not all(
+                map(np.isfinite, rel_errs.values())):
+            raise AssertionError(f"openllama: prefill logits kernel vs "
+                                 f"plain rel errors {rel_errs} > "
+                                 f"{LOGITS_REL_TOL}")
+        # K1's share of one 512-token prefill's device time (26 launches)
+        toks = torch.tensor([prompts[512]], device="cuda")
+        got = _device_ms(
+            lambda: llama.step_prefill(params, toks, cfg),
+            {"k1": lambda n: "flash_fwd_wgmma" in n, "all": lambda n: True},
+            counts_ok={"k1": lambda c: sum(c.values())
+                       == cfg.num_hidden_layers})
+    share = None if got is None else {
+        "k1_device_ms": got[0]["k1"], "device_ms": got[0]["all"],
+        "k1_share": got[0]["k1"] / got[0]["all"]}
+
+    _reset_k1()  # count the main path's launches only
+    engine = serve.boot(params, cfg, device="cuda", kv_mb=1024,
+                        max_new_tokens=PULL_NEW, max_batch=4, queue_limit=8)
+    server = http.start()
+    tokens, prefill_s = {}, {}
+    try:
+        for n in OPENLLAMA_SERVED:
+            before = _span_s("serve.prefill")
+            tokens[n] = _generate_http(f"{server.url}/generate", prompts[n],
+                                       PULL_NEW)
+            prefill_s[n] = _span_s("serve.prefill") - before
+    finally:
+        engine.stop()
+        server.stop()
+        serve.install(None)
+    by_kernel = dict(fa.launches_by_kernel)
+    launches = fa.launches
+    want = cfg.num_hidden_layers * len(OPENLLAMA_SERVED)
+    if launches != want or by_kernel["wgmma_f16"] != want:
+        raise AssertionError(f"openllama: K1 launches {by_kernel}, expected "
+                             f"{want} on wgmma_f16")
+    for n, toks in tokens.items():
+        if len(toks) != PULL_NEW or toks[0] != first[n]:
+            raise AssertionError(f"openllama: prompt {n}: tokens {toks}, "
+                                 f"kernel-path prefill argmax {first[n]}")
+    _say("openllama", model=f"OpenLLaMA-3B widths, {cfg.num_hidden_layers} "
+         "layers, f16, seeded",
+         head_dim=cfg.head_dim, weight_bytes=weight_bytes,
+         init_s=round(init_s, 3), logits_rel_err=rel_errs,
+         logits_tol=LOGITS_REL_TOL, prefill_512=share,
+         prompt_lens=list(OPENLLAMA_SERVED), tokens=tokens,
+         serve_prefill_s=prefill_s, k1_launches=launches,
+         k1_launches_by_kernel=by_kernel)
+    del params, engine
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _dequant_entries(rows: dict[str, dict], launches: dict[str, int]
@@ -1798,9 +2006,10 @@ def _dequant_entries(rows: dict[str, dict], launches: dict[str, int]
 def _flash_entries(rows: dict[str, dict], launches: dict[str, int]
                    ) -> list[dict]:
     """The kernels-line entries of K1: the bf16 and f16 tensor-core
-    kernel at the 7B prefill (S=512), and the CUDA-core kernel in each
-    type at the tiny phase's shape, with its rows at head dims 80 and
-    256 (S=512) beside."""
+    kernel at the 7B prefill (S=512) with its rows at head dims 8, 80,
+    96, 100 (OpenLLaMA-3B) and 256 beside, and the f32 CUDA-core kernel
+    at the tiny phase's shape with its rows at head dims 80 and 256
+    (S=512) beside."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "device_ms_by", "library_device_ms",
             "library_device_ms_by", "shape", "dtype")
@@ -1811,16 +2020,20 @@ def _flash_entries(rows: dict[str, dict], launches: dict[str, int]
                 "replaces": "demodel_tpu/ops/flash_attention.py:136",
                 "launches": n, **{k: row[k] for k in keys}}
 
-    out = [entry("flash_attention", rows["prefill_s512"],
-                 launches["wgmma_bf16"]),
-           entry("flash_attention_f16", rows["f16_prefill_s512"],
-                 launches["wgmma_f16"])]
-    for dtype, kernel in SIMT_ROWS.items():
-        e = entry(f"flash_attention_{kernel}", rows[f"tiny_prefill_{dtype}"],
-                  launches[kernel])
-        e["head_dims"] = [{k: rows[f"d{D}_{dtype}"][k] for k in keys}
-                          for D in (80, 256)]
+    out = []
+    for name, row, dtype in (("flash_attention", "prefill_s512", "bfloat16"),
+                             ("flash_attention_f16", "f16_prefill_s512",
+                              "float16")):
+        e = entry(name, rows[row], launches[K1_BY_DTYPE[dtype]])
+        e["head_dims"] = [{k: rows[n][k] for k in keys} for n in (
+            f"d8_{dtype}", f"d80_{dtype}", f"d96_{dtype}",
+            f"openllama_s512_{dtype}", f"d256_{dtype}")]
         out.append(e)
+    e = entry("flash_attention_simt_f32", rows["tiny_prefill_float32"],
+              launches["simt_f32"])
+    e["head_dims"] = [{k: rows[f"d{D}_float32"][k] for k in keys}
+                      for D in (80, 256)]
+    out.append(e)
     return out
 
 
@@ -1852,7 +2065,9 @@ def main() -> int:
         rig.close()
     del rig
     torch.cuda.empty_cache()
-    k1.update(phase_tiny())
+    for kernel, n in phase_tiny().items():
+        k1[kernel] = k1.get(kernel, 0) + n
+    k1["wgmma_f16"] += phase_openllama()
     _say("done", total_s=round(time.perf_counter() - t0, 3))
     print(smi, flush=True)
     print(json.dumps({"kernels": [*_flash_entries(rows, k1),

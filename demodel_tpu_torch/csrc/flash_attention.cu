@@ -1,7 +1,10 @@
 // Fused flash-attention forward for NVIDIA Hopper (sm_90a): two kernels,
-// chosen by the input dtype and head dim. The tensor-core one is
-// instantiated for bf16 and f16 at head dims 64 and 128; the CUDA-core one
-// takes float32, bf16 and f16 at every head dim up to 256.
+// chosen by the input dtype. bf16 and f16 go to the tensor-core kernel at
+// every head dim up to 256; float32 goes to the CUDA-core kernel at every
+// head dim up to 256. A head dim past 256, float64 or any other dtype has
+// no kernel: the wrapper raises before a launch, and the entry point
+// returns cudaErrorInvalidValue for a kernel code or head dim it does not
+// know.
 //
 // Replaces the Pallas TPU kernel demodel_tpu/ops/flash_attention.py
 // `_flash_kernel` (launched by `_flash_forward`, public entry
@@ -17,53 +20,78 @@
 // a causal layer is bound by the tensor cores (34.7 us of operations at
 // S=2048).
 //
-// bf16 and f16: `flash_fwd_wgmma<T, D>`, on the tensor cores. One block per
-// 64 query rows of one (batch row, head): one consumer warpgroup (4 warps)
-// and one producer warp. The producer loads the Q tile once and streams 64-key K and
-// V tiles through a 2-stage ring in shared memory with TMA (4-D tensor maps
-// over the (B, S, H, D) strides, 128-byte swizzle, out-of-bounds rows zero
-// filled), each tile signalled through an mbarrier, so the next tile's loads
-// overlap this tile's math. S = Q.K^T is `wgmma.m64n64k16` with both operands
-// in shared memory; q is not pre-scaled, the fp32 scores are scaled by
-// scale*log2(e) so the softmax uses exp2. The online softmax runs on the
-// accumulator in registers: a row's 16 values per thread reduce across the 4
-// threads that share the row (2 shuffles); the causal and kv_len masks are
-// applied only on tiles that cross the diagonal or the kv_len edge. O += P.V
-// is `wgmma` with P taken from registers (the S accumulator's fragment is the
-// A operand's layout once packed to T) and V read MN-major from the ring.
-// The epilogue divides by l, stores T and the LSE, (m2 + log2 l) * ln 2.
+// bf16 and f16: `flash_fwd_wgmma<T, DP>`, on the tensor cores, instantiated
+// at the padded head dims DP = 64, 128 and 256 with the true D (<= DP) a
+// run-time parameter. One block per 64 query rows of one (batch row, head):
+// one consumer warpgroup (4 warps) and one producer warp. The producer
+// loads the Q tile once and streams 64-key K and V tiles through a 2-stage
+// ring in shared memory with TMA (128-byte swizzle, out-of-bounds rows zero
+// filled), each tile signalled through an mbarrier, so the next tile's
+// loads overlap this tile's math. A row of a tile is DP/64 boxes of 64
+// columns (128 bytes); boxes wholly past D are not loaded, and what lies in
+// them is never read into a stored column.
+//
+// Two tensor maps read q, k and v where they lie. A tensor whose head
+// stride is a multiple of 16 bytes is read through a 4-D map over (D,
+// heads, rows, batch) whose innermost extent is the true D, so columns
+// D..DP-1 of a box are zero filled. A tensor with packed heads (head stride
+// D) whose head stride TMA cannot take (D = 100, 200 bytes: OpenLLaMA-3B)
+// is read through a 3-D "row" map over (heads*D, rows, batch). TMA takes a
+// box only at a 16-byte aligned start (on the H100 any other start is an
+// illegal instruction), so a head's tile starts at column head*D rounded
+// down to a multiple of 8 and the head sits `shift` = (head*D) % 8 columns
+// into it (0 or 4 at D = 100). The tile's columns before the head and past
+// it hold the neighbouring heads' values, so the consumer zeroes them in
+// the Q tile in shared memory (through the swizzle) before its first
+// wgmma; K's head sits at the same shift (the wrapper sends q and k
+// through the row map only together, with one kv head per q head), so its
+// extra columns multiply zeros, and V's land in accumulator columns that
+// the epilogue skips (it stores columns v_shift..v_shift+D-1). The
+// wrapper copies a tensor that no map takes into a contiguous buffer with
+// its head dim padded to a multiple of 8.
+//
+// S = Q.K^T is `wgmma.m64n64k16` over ceil((shift+D)/16) steps of the Q
+// and K tiles in shared memory; q is not pre-scaled, the fp32 scores are scaled
+// by scale*log2(e) (scale = D^-0.5 of the true D, from the wrapper) so the
+// softmax uses exp2. The online softmax runs on the accumulator in
+// registers: a row's 16 values per thread reduce across the 4 threads that
+// share the row (2 shuffles); the causal and kv_len masks are applied only
+// on tiles that cross the diagonal or the kv_len edge. O += P.V is
+// `wgmma.m64n{DP}k16` with P taken from registers (the S accumulator's
+// fragment is the A operand's layout once packed to T) and V read MN-major
+// from the ring. The epilogue divides by l, stores columns < D of o in T and
+// the LSE, (m2 + log2 l) * ln 2. At DP=256 the block takes 164,864 bytes of
+// shared memory (one block an SM) and 128 fp32 accumulator registers a
+// thread for O.
+//
 // Numerics: P is rounded to T (against its row's running max) before P.V,
 // where the plain version keeps fp32; the JAX reference itself rounds the
 // probabilities to q's dtype. That is about 2^-9 relative per term in bf16
-// and 2^-12 in f16, well inside the tolerance of 2e-2. The f16 instantiation
-// differs from the bf16 one only in the operand type of both `wgmma`s
-// (`.f32.f16.f16`), the TMA map's element type and the packing of P and the
-// output; a pulled Llama-2 checkpoint is stored in f16 and reaches K1 so.
+// and 2^-12 in f16, well inside the tolerance of 2e-2. The f16
+// instantiations differ from the bf16 ones only in the operand type of both
+// `wgmma`s (`.f32.f16.f16`), the TMA maps' element type and the packing of
+// P and the output; a pulled Llama-2 or OpenLLaMA checkpoint is stored in
+// f16 and reaches K1 so.
 //
-// float32, and bf16 and f16 at head dims other than 64 and 128:
-// `flash_fwd_kernel<T, DP>`, on the CUDA cores. float32 goes there because
-// the JAX kernel computes in fp32 and the f32 tolerances (1e-4) rule out bf16
-// or TF32 tensor cores; the other head dims because the tensor-core kernel
-// is instantiated for 64 and 128 only. DP is the head dim padded up to 32,
-// 64, 128 or 256 and the true D (<= DP) a runtime argument: columns past D
-// load as zeros and are never stored, and the scale stays D^-0.5 of the true
-// D. One block of 8 warps per (q-tile of 32 rows, head, batch row); each warp
-// owns 4 query rows. For every 32-key tile, lane j scores key j against the
-// warp's 4 rows (q rows read as broadcast float4, key rows padded to DP+1
-// floats so the 32 lanes hit 32 banks), the running max / denominator update
-// with warp shuffles, and then each lane accumulates output columns lane,
-// lane+32, ... of P.V in fp32 registers. In bf16 and f16, P is rounded to T
-// before P.V, as in the tensor-core kernel. The tiles are fp32 in shared
-// memory: 98,432 bytes at DP=256, above the 48 KB default, so the launch
-// raises the block's dynamic shared memory limit. This kernel is bound by
-// its FMA issue rate (no tensor cores): at D=256, S=512 it does the same
-// operations as the wgmma kernel on 1/15 of the peak.
+// float32: `flash_fwd_kernel<DP>`, on the CUDA cores, because the JAX
+// kernel computes in fp32 and the f32 tolerances (1e-4) rule out bf16 or
+// TF32 tensor cores. DP is the head dim padded up to 32, 64, 128 or 256 and
+// the true D (<= DP) a runtime argument: columns past D load as zeros and
+// are never stored. One block of 8 warps per (q-tile of 32 rows, head,
+// batch row); each warp owns 4 query rows. For every 32-key tile, lane j
+// scores key j against the warp's 4 rows (q rows read as broadcast float4,
+// key rows padded to DP+1 floats so the 32 lanes hit 32 banks), the running
+// max / denominator update with warp shuffles, and then each lane
+// accumulates output columns lane, lane+32, ... of P.V in fp32 registers.
+// The tiles take 98,432 bytes of shared memory at DP=256, above the 48 KB
+// default, so the launch raises the block's dynamic shared memory limit.
+// This kernel is bound by its FMA issue rate.
 //
 // Both kernels keep HBM traffic at O(S*D) per head (the S*S scores never
-// leave the SM), read (B, S, H, D) tensors through their strides (no
-// transposes or padding copies), and take the windows either by value (one
-// kv_len and causal_offset for the whole batch, the main path) or as an
-// int32 [2, B] tensor (ragged decode). One call is one launch.
+// leave the SM), read (B, S, H, D) tensors through their strides, and take
+// the windows either by value (one kv_len and causal_offset for the whole
+// batch, the main path) or as an int32 [2, B] tensor (ragged decode). One
+// call is one launch.
 
 #include <cuda.h>  // CUtensorMap and the encoder's types; no -lcuda needed
 #include <cuda_bf16.h>
@@ -73,7 +101,6 @@
 #include <atomic>
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 // The launch, as the wrapper's plan packs it: every field 8 bytes, no
 // padding. Strides are in elements; the last dim of every tensor is
@@ -85,8 +112,9 @@ struct LaunchArgs {
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   long long causal;
-  long long kernel;  // 0, 3, 4: f32, bf16, f16 CUDA cores; 1, 2: bf16, f16
-                     // tensor cores
+  long long kernel;  // 0: f32 CUDA cores; 1, 2: bf16, f16 tensor cores
+  long long maps;    // tensor cores: bit 0, 1, 2 set when q, k, v are read
+                     // through the row map (else the 4-D map)
   long long grid_x, threads, smem;
   long long device;
   double scale;
@@ -104,10 +132,10 @@ constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = kBlockQ / kWarps;   // 4
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   float* lse;        // [B, Sq, H] or nullptr
   const int* win;    // [2, B]: kv_len per batch row, then causal_offset;
                      // nullptr: kv_len / causal_offset below for every row
@@ -120,25 +148,6 @@ struct Params {
   float scale;
   int causal;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -158,11 +167,10 @@ constexpr int smem_floats() {
   return kBlockQ * DP + kBlockK * (DP + 1) + kBlockK * DP;
 }
 
-// T is the element type of q, k, v and o (float, bf16 or f16); DP the head
-// dim padded up to a multiple of 32 (32, 64, 128 or 256) and `D` <= DP the
-// true one. Columns D..DP-1 are zeros in shared memory, so they add nothing
-// to the scores and produce columns that are never stored.
-template <typename T, int DP>
+// DP is the head dim padded up to a multiple of 32 (32, 64, 128 or 256) and
+// `D` <= DP the true one. Columns D..DP-1 are zeros in shared memory, so
+// they add nothing to the scores and produce columns that are never stored.
+template <int DP>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_fwd_kernel(const Params p, const int D) {
   static_assert(DP % 32 == 0, "padded head dim must be a multiple of 32");
@@ -182,15 +190,15 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int kv_len = p.win != nullptr ? p.win[b] : p.kv_len;
   const int offset = p.win != nullptr ? p.win[p.B + b] : p.causal_offset;
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sh;
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* k = p.k + b * p.k_sb + g * p.k_sh;
+  const float* v = p.v + b * p.v_sb + g * p.v_sh;
 
   for (int i = tid; i < kBlockQ * DP; i += kWarps * 32) {
     const int r = i / DP;
     const int d = i - r * DP;
     const int qi = q0 + r;
-    sq[i] = qi < p.Sq && d < D ? to_f32(q[qi * p.q_ss + d]) * p.scale : 0.f;
+    sq[i] = qi < p.Sq && d < D ? q[qi * p.q_ss + d] * p.scale : 0.f;
   }
 
   // keys any row of this block can see: the valid prefix, cut at the
@@ -216,8 +224,8 @@ __global__ void __launch_bounds__(kWarps * 32)
       const int d = i - j * DP;
       const int kj = t0 + j;
       const bool in = kj < p.Sk && d < D;
-      sk[j * (DP + 1) + d] = in ? to_f32(k[kj * p.k_ss + d]) : 0.f;
-      sv[j * DP + d] = in ? to_f32(v[kj * p.v_ss + d]) : 0.f;
+      sk[j * (DP + 1) + d] = in ? k[kj * p.k_ss + d] : 0.f;
+      sv[j * DP + d] = in ? v[kj * p.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -244,9 +252,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
 
     // online softmax; masked entries score NEG_INF and weigh exactly 0, so
-    // a row with no visible key keeps l == 0. l sums the fp32
-    // probabilities; in the 2-byte types P.V takes them rounded to T, as
-    // the tensor-core kernel and the JAX reference do.
+    // a row with no visible key keeps l == 0
     const int kj = t0 + lane;
     float pr[kRowsPerWarp];
 #pragma unroll
@@ -258,7 +264,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       const float alpha = expf(m[rr] - m_new);
       const float e = valid ? expf(sc - m_new) : 0.f;
       l[rr] = l[rr] * alpha + warp_sum(e);
-      pr[rr] = to_f32(from_f32<T>(e));
+      pr[rr] = e;
       m[rr] = m_new;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) acc[rr][c] *= alpha;
@@ -287,10 +293,10 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (qi >= p.Sq) continue;
     const float safe = l[rr] == 0.f ? 1.f : l[rr];
     const float inv = 1.f / safe;
-    T* orow = static_cast<T*>(p.o) + b * p.o_sb + qi * p.o_ss + h * p.o_sh;
+    float* orow = p.o + b * p.o_sb + qi * p.o_ss + h * p.o_sh;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      if (c * 32 + lane < D) orow[c * 32 + lane] = from_f32<T>(acc[rr][c] * inv);
+      if (c * 32 + lane < D) orow[c * 32 + lane] = acc[rr][c] * inv;
     if (p.lse != nullptr && lane == 0)
       p.lse[(static_cast<long long>(b) * p.Sq + qi) * p.H + h] =
           l[rr] > 0.f ? m[rr] + logf(l[rr]) : kNegInf;
@@ -306,15 +312,15 @@ constexpr int kTcThreads = 160; // consumer warpgroup + producer warp
 constexpr int kBoxBytes = 64 * 64 * 2;  // one TMA box: 64 rows x 128 bytes
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
+template <int DP>
 __host__ __device__ constexpr int tc_tile_bytes() {
-  return kTcKeys * D * 2;
+  return kTcKeys * DP * 2;
 }
 // Q tile + the K and V rings + slack to align the base to 1024 bytes (the
-// 128-byte swizzle repeats every 8 rows of 128 bytes)
-template <int D>
+// 128-byte swizzle repeats every 8 rows of 128 bytes): 164,864 at DP=256
+template <int DP>
 constexpr int tc_smem_bytes() {
-  return tc_tile_bytes<D>() * (1 + 2 * kStages) + 1024;
+  return tc_tile_bytes<DP>() * (1 + 2 * kStages) + 1024;
 }
 
 struct TcParams {
@@ -322,7 +328,10 @@ struct TcParams {
   float* lse;
   const int* win;
   int kv_len, causal_offset;
-  int B, Sq, Sk, H, G;
+  int B, Sq, Sk, H, G, D;
+  // head stride (elements) of q, k, v where the row map reads them (head h
+  // starts at column h * stride); -1 where the 4-D map does
+  int q_hcol, k_hcol, v_hcol;
   long long o_sb, o_ss, o_sh;
   float scale_log2;  // softmax scale * log2(e)
   int causal;
@@ -376,6 +385,45 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// the same for a 3-D row map (column, row, batch)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// Where head `head` of a tensor starts in its tile: through the row map
+// (`hcol` >= 0) a box must start on a 16-byte boundary (TMA refuses any
+// other start: H100, cudaErrorIllegalInstruction), so the tile starts at
+// column head * hcol rounded down to a multiple of 8 and the head sits
+// `shift` = (head * hcol) % 8 columns into it; through the 4-D map at 0.
+__device__ __forceinline__ int head_shift(int hcol, int head) {
+  return hcol >= 0 ? (head * hcol) & 7 : 0;
+}
+
+// the 64-column boxes of one tile (rows `row`.., head `head`) that hold
+// its D columns past `shift`, loaded through the row map (`hcol` >= 0) or
+// the 4-D map
+__device__ __forceinline__ void tma_load_tile(uint32_t dst,
+                                              const CUtensorMap* map, int hcol,
+                                              int D, int head, int row, int b,
+                                              uint32_t bar) {
+  const int shift = head_shift(hcol, head);
+  const int nbox = (D + shift + 63) / 64;
+  for (int x = 0; x < nbox; ++x) {
+    if (hcol >= 0)
+      tma_load_3d(dst + x * kBoxBytes, map, head * hcol - shift + 64 * x,
+                  row, b, bar);
+    else
+      tma_load_4d(dst + x * kBoxBytes, map, 64 * x, head, row, b, bar);
+  }
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets, all in 16-byte units
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
@@ -422,6 +470,9 @@ struct TcType<__nv_bfloat16> {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
+  static __device__ __forceinline__ __nv_bfloat16 one(float x) {
+    return __float2bfloat16_rn(x);
+  }
 };
 template <>
 struct TcType<__half> {
@@ -431,9 +482,13 @@ struct TcType<__half> {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
+  static __device__ __forceinline__ __half one(float x) {
+    return __float2half_rn(x);
+  }
 };
 
-// the 32 and 64 fp32 accumulator registers of a 64x64 and a 64x128 tile
+// the 32, 64 and 128 fp32 accumulator registers of a 64x64, a 64x128 and
+// a 64x256 tile
 #define DM_ACC32(d)                                                            \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),      \
       "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
@@ -450,6 +505,31 @@ struct TcType<__half> {
       "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),         \
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define DM_ACC128(d)                                                          \
+  DM_ACC64(d), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),            \
+      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),        \
+      "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),        \
+      "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]),        \
+      "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),        \
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]),        \
+      "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),        \
+      "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),     \
+      "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),   \
+      "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]),   \
+      "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]),   \
+      "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]),   \
+      "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+#define DM_REGS128                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "    \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "    \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "    \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "    \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "  \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "  \
+  "%124, %125, %126, %127}"
 #define DM_REGS32                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "     \
@@ -474,6 +554,10 @@ struct TcType<__half> {
   "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                 \
   "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " DM_REGS64     \
   ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+#define DM_WGMMA_RS_256(TY)                                                    \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                \
+  "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " " DM_REGS128    \
+  ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
 
 template <bool kHalf>
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
@@ -516,34 +600,59 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64],
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <bool kHalf, int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 64)
-    wgmma_rs_m64n64k16_tb<kHalf>(o, a, db);
+template <bool kHalf>
+__device__ __forceinline__ void wgmma_rs_m64n256k16_tb(float (&d)[128],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  if constexpr (kHalf)
+    asm volatile(DM_WGMMA_RS_256("f16")
+                 : DM_ACC128(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   else
+    asm volatile(DM_WGMMA_RS_256("bf16")
+                 : DM_ACC128(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <bool kHalf, int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DP == 64)
+    wgmma_rs_m64n64k16_tb<kHalf>(o, a, db);
+  else if constexpr (DP == 128)
     wgmma_rs_m64n128k16_tb<kHalf>(o, a, db);
+  else
+    wgmma_rs_m64n256k16_tb<kHalf>(o, a, db);
 }
 
 // Accumulator layout of a 64xN wgmma tile (fp32): thread t of the
 // warpgroup (warp w, lane l) holds rows r0 = 16w + l/4 and r0 + 8, columns
 // 8j + 2(l%4) + {0,1}; register 4j + 2i + c is (row r0 + 8i, column
 // 8j + 2(l%4) + c).
-template <typename T, int D>
-__global__ void __launch_bounds__(kTcThreads, 2)
+//
+// kExact: D == DP and q, k and v all read through the 4-D map, the
+// launch's choice. Then D, the shifts, the boxes and the Q.K^T steps are
+// constants, and no run-time guard sits among the wgmmas or in the
+// epilogue (Llama's D = 128 runs this body).
+template <typename T, int DP, bool kExact>
+__global__ void __launch_bounds__(kTcThreads, DP == 256 ? 1 : 2)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     const TcParams p) {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(DP == 64 || DP == 128 || DP == 256, "padded head dim");
   constexpr bool kHalf = TcType<T>::kHalf;
-  constexpr int kBoxes = D / 64;  // 128-byte column boxes per row
-  constexpr uint32_t kTile = tc_tile_bytes<D>();
+  const int D = kExact ? DP : p.D;
+  const int q_hcol = kExact ? -1 : p.q_hcol;
+  const int k_hcol = kExact ? -1 : p.k_hcol;
+  const int v_hcol = kExact ? -1 : p.v_hcol;
+  constexpr uint32_t kTile = tc_tile_bytes<DP>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
 
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sq = base;                      // [kBoxes][64 rows][128 B]
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sq = base;                      // [DP/64 boxes][64 rows][128 B]
   const uint32_t sk = base + kTile;              // kStages K tiles
   const uint32_t sv = base + (1 + kStages) * kTile;  // kStages V tiles
   const uint32_t bar_q = smem_u32(&bars[0]);
@@ -562,6 +671,14 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   const int g = h / (p.H / p.G);  // GQA: the kv head this q head reads
   const int kv_len = p.win != nullptr ? p.win[b] : p.kv_len;
   const int offset = p.win != nullptr ? p.win[p.B + b] : p.causal_offset;
+  // q's and k's head sit at one shift into their tiles (the plan sends
+  // them through the row map only together, with one kv head per q head),
+  // v's at its own; the loaded boxes hold columns shift..shift+D-1 and
+  // the Q.K^T steps cover them (boxes and steps past them are skipped)
+  const int qk_shift = head_shift(q_hcol, h);
+  const int v_shift = head_shift(v_hcol, g);
+  const int qk_cols = qk_shift + D;
+  const int ksteps = (qk_cols + 15) / 16;
 
   // keys any row of this block can see: the valid prefix, cut at the
   // causal diagonal of the block's last real row (tiles past it skipped)
@@ -585,24 +702,21 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   if (threadIdx.x >= 128) {
     // producer warp: one lane issues every load, then the warp is done
     if (threadIdx.x == 128 && n_tiles > 0) {
-      mbar_expect_tx(bar_q, kTile);
-#pragma unroll
-      for (int x = 0; x < kBoxes; ++x)
-        tma_load_4d(sq + x * kBoxBytes, &tq, 64 * x, h, q0, b, bar_q);
+      // expect_tx counts whole boxes, zero-filled columns included
+      const uint32_t qk_bytes = (qk_cols + 63) / 64 * kBoxBytes;
+      const uint32_t v_bytes = (v_shift + D + 63) / 64 * kBoxBytes;
+      mbar_expect_tx(bar_q, qk_bytes);
+      tma_load_tile(sq, &tq, q_hcol, D, h, q0, b, bar_q);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         if (t >= kStages)  // the consumer has released tile t - kStages
           mbar_wait(bar_free + 8 * s, ((t / kStages) - 1) & 1);
-        mbar_expect_tx(bar_k + 8 * s, kTile);
-#pragma unroll
-        for (int x = 0; x < kBoxes; ++x)
-          tma_load_4d(sk + s * kTile + x * kBoxBytes, &tk, 64 * x, g,
-                      t * kTcKeys, b, bar_k + 8 * s);
-        mbar_expect_tx(bar_v + 8 * s, kTile);
-#pragma unroll
-        for (int x = 0; x < kBoxes; ++x)
-          tma_load_4d(sv + s * kTile + x * kBoxBytes, &tv, 64 * x, g,
-                      t * kTcKeys, b, bar_v + 8 * s);
+        mbar_expect_tx(bar_k + 8 * s, qk_bytes);
+        tma_load_tile(sk + s * kTile, &tk, k_hcol, D, g, t * kTcKeys, b,
+                      bar_k + 8 * s);
+        mbar_expect_tx(bar_v + 8 * s, v_bytes);
+        tma_load_tile(sv + s * kTile, &tv, v_hcol, D, g, t * kTcKeys, b,
+                      bar_v + 8 * s);
       }
     }
     return;
@@ -614,30 +728,56 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   const int r0 = (tid >> 5) * 16 + (lane >> 2);  // rows r0 and r0 + 8
   const int cq = (lane & 3) * 2;                 // column pair in each 8
 
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
   float l[2] = {0.f, 0.f};              // this thread's share of the sum
 
-  if (n_tiles > 0) mbar_wait(bar_q, 0);
+  if (n_tiles > 0) {
+    mbar_wait(bar_q, 0);
+    // through the row map, the Q tile's columns before the head (the
+    // shift) and past it to the end of the last loaded box hold the
+    // neighbouring heads' values: zero them (element (r, c) of a box sits
+    // in 16-byte chunk (c / 8) ^ (r % 8) of its 128-byte row), then hand
+    // the writes to the async proxy that wgmma reads through
+    const int tail = (qk_cols + 63) / 64 * 64 - qk_cols;
+    const int width = qk_shift + tail;
+    if (q_hcol >= 0 && width > 0) {
+      uint8_t* gq = smem_raw + (sq - raw);
+      for (int i = tid; i < kTcRows * width; i += 128) {
+        const int r = i / width;
+        const int j = i % width;
+        const int c = j < qk_shift ? j : qk_cols + j - qk_shift;
+        const int chunk = ((c & 63) >> 3) ^ (r & 7);
+        *reinterpret_cast<uint16_t*>(gq + (c >> 6) * kBoxBytes + r * 128 +
+                                     chunk * 16 + (c & 7) * 2) = 0;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    }
+  }
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % kStages;
     const uint32_t phase = (t / kStages) & 1;
     const int t0 = t * kTcKeys;
 
-    // S = Q . K^T over D in steps of 16: step kk reads 32 bytes at
-    // 32 * (kk % 4) into column box kk / 4 of Q and of K
+    // S = Q . K^T over D in steps of 16 (the steps wholly past D skipped):
+    // step kk reads 32 bytes at 32 * (kk % 4) into column box kk / 4 of Q
+    // and of K
     float sc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
     mbar_wait(bar_k + 8 * s, phase);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-      wgmma_ss_m64n64k16<kHalf>(sc, sw128_desc(sq + off, 16, 1024),
-                         sw128_desc(sk + s * kTile + off, 16, 1024), kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      if (kk < ksteps) {
+        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss_m64n64k16<kHalf>(sc, sw128_desc(sq + off, 16, 1024),
+                                  sw128_desc(sk + s * kTile + off, 16, 1024),
+                                  kk > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait0();
@@ -686,7 +826,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
         }
       l[i] = l[i] * alpha + sum;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DP / 8; ++j) {
         o[4 * j + 2 * i] *= alpha;
         o[4 * j + 2 * i + 1] *= alpha;
       }
@@ -702,36 +842,50 @@ __global__ void __launch_bounds__(kTcThreads, 2)
         pa[kk][r] = TcType<T>::pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
     // O += P . V: V tile read MN-major, 16 keys (2 groups of 8 rows,
-    // 1024 bytes apart) per step; column boxes 8192 bytes apart
+    // 1024 bytes apart) per step; the DP/64 column boxes 8192 bytes apart
     mbar_wait(bar_v + 8 * s, phase);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<kHalf, D>(o, pa[kk],
-                  sw128_desc(sv + s * kTile + kk * 2048, kBoxBytes, 1024));
+      wgmma_pv<kHalf, DP>(o, pa[kk],
+                          sw128_desc(sv + s * kTile + kk * 2048, kBoxBytes,
+                                     1024));
     wgmma_commit();
     wgmma_wait0();
     fence_regs(o);
     mbar_arrive(bar_free + 8 * s);
   }
 
-  // epilogue: the row sums over the 4 threads of a row, then out and LSE
+  // epilogue: the row sums over the 4 threads of a row, then out's D
+  // columns (accumulator columns v_shift..v_shift+D-1; in pairs where D is
+  // even: the wrapper's contiguous output and an even v_shift then keep
+  // every pair 4-byte aligned) and the LSE
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
+  const bool pairs = (D & 1) == 0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + r0 + 8 * i;
     if (row >= p.Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    T* orow = static_cast<T*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh + cq;
+    T* orow = static_cast<T*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-          TcType<T>::pack(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + cq - v_shift;  // out's column of this pair
+      const float lo = o[4 * j + 2 * i] * inv;
+      const float hi = o[4 * j + 2 * i + 1] * inv;
+      if (pairs) {
+        if (kExact || (c >= 0 && c < D))
+          *reinterpret_cast<uint32_t*>(orow + c) = TcType<T>::pack(lo, hi);
+      } else {
+        if (c >= 0 && c < D) orow[c] = TcType<T>::one(lo);
+        if (c + 1 >= 0 && c + 1 < D) orow[c + 1] = TcType<T>::one(hi);
+      }
+    }
     if (p.lse != nullptr && (lane & 3) == 0)
       p.lse[(static_cast<long long>(b) * p.Sq + row) * p.H + h] =
           l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : kNegInf;
@@ -767,33 +921,50 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// 4-D map of 2-byte elements (`type`) over a (B, S, heads, D) tensor, innermost first, boxes of
-// 64 d-values (128 bytes, swizzled) x 1 head x 64 rows x 1 batch row; rows
-// past S read as zeros. Strides in elements; the caller guarantees a
-// 16-byte aligned base and 16-byte multiple strides.
+// A map of 2-byte elements (`type`) over a (B, S, heads, D) tensor with
+// boxes of 64 columns (128 bytes, swizzled) x 64 rows; rows past S read as
+// zeros. `rows` false: 4-D (D, heads, S, B), innermost extent the true D,
+// so columns past D read as zeros too. `rows` true: 3-D (columns, S, B)
+// over each row's (heads - 1) * s_head + D columns, a box of head h
+// starting at column h * s_head. Strides in elements; the caller
+// guarantees a 16-byte aligned base and 16-byte multiple strides (s_head
+// too for the 4-D map).
 bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
                 int D, int heads, int S, int B, long long s_head,
-                long long s_row, long long s_batch) {
+                long long s_row, long long s_batch, bool rows) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
+  const cuuint64_t s_dim = static_cast<cuuint64_t>(S > 0 ? S : 1);
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (rows) {
+    const cuuint64_t dims[3] = {
+        static_cast<cuuint64_t>((heads - 1) * s_head + D), s_dim,
+        static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(s_row) * 2,
+                                   static_cast<cuuint64_t>(s_batch) * 2};
+    const cuuint32_t box[3] = {64, kTcKeys, 1};
+    return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
+                  unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  }
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S > 0 ? S : 1),
+                              static_cast<cuuint64_t>(heads), s_dim,
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_head) * 2,
                                  static_cast<cuuint64_t>(s_row) * 2,
                                  static_cast<cuuint64_t>(s_batch) * 2};
   const cuuint32_t box[4] = {64, 1, kTcKeys, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, type, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // dynamic shared memory above 48 KB, set once per kernel and device
-template <int Kind, int D>
+template <int Kind, int DP>
 cudaError_t allow_smem(const void* fn, int smem, int device) {
   static std::atomic<unsigned long long> done{0};
   const unsigned long long bit = 1ull << (device & 63);
@@ -808,25 +979,22 @@ cudaError_t allow_smem(const void* fn, int smem, int device) {
   return err;
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t launch_simt(const LaunchArgs& a, cudaStream_t stream) {
   const int smem = smem_floats<DP>() * static_cast<int>(sizeof(float));
   if (a.smem != smem || a.threads != kWarps * 32 || a.D > DP || a.D < 1)
     return cudaErrorInvalidValue;
-  constexpr int kKind = std::is_same<T, float>::value           ? 0
-                        : std::is_same<T, __nv_bfloat16>::value ? 3
-                                                                : 4;
   // 98,432 bytes at DP=256: above the 48 KB default, so the attribute is
   // set for every instantiation before its first launch
   cudaError_t err =
-      allow_smem<kKind, DP>(reinterpret_cast<const void*>(flash_fwd_kernel<T, DP>),
-                            smem, static_cast<int>(a.device));
+      allow_smem<0, DP>(reinterpret_cast<const void*>(flash_fwd_kernel<DP>),
+                        smem, static_cast<int>(a.device));
   if (err != cudaSuccess) return err;
   Params p;
-  p.q = reinterpret_cast<const void*>(a.q);
-  p.k = reinterpret_cast<const void*>(a.k);
-  p.v = reinterpret_cast<const void*>(a.v);
-  p.o = reinterpret_cast<void*>(a.o);
+  p.q = reinterpret_cast<const float*>(a.q);
+  p.k = reinterpret_cast<const float*>(a.k);
+  p.v = reinterpret_cast<const float*>(a.v);
+  p.o = reinterpret_cast<float*>(a.o);
   p.lse = reinterpret_cast<float*>(a.lse);
   p.win = reinterpret_cast<const int*>(a.win);
   p.kv_len = static_cast<int>(a.kv_len);
@@ -843,45 +1011,60 @@ cudaError_t launch_simt(const LaunchArgs& a, cudaStream_t stream) {
   p.scale = static_cast<float>(a.scale);
   p.causal = static_cast<int>(a.causal);
   const dim3 grid(static_cast<unsigned>(a.grid_x), p.H, p.B);
-  flash_fwd_kernel<T, DP><<<grid, kWarps * 32, smem, stream>>>(
+  flash_fwd_kernel<DP><<<grid, kWarps * 32, smem, stream>>>(
       p, static_cast<int>(a.D));
   return cudaGetLastError();
 }
 
-// the CUDA-core kernel in element type T at the head dim padded up to the
-// next of 32, 64, 128, 256
-template <typename T>
+// the CUDA-core kernel at the head dim padded up to the next of 32, 64,
+// 128, 256
 cudaError_t launch_simt_any(const LaunchArgs& a, cudaStream_t stream) {
-  if (a.D <= 32) return launch_simt<T, 32>(a, stream);
-  if (a.D <= 64) return launch_simt<T, 64>(a, stream);
-  if (a.D <= 128) return launch_simt<T, 128>(a, stream);
-  if (a.D <= 256) return launch_simt<T, 256>(a, stream);
+  if (a.D <= 32) return launch_simt<32>(a, stream);
+  if (a.D <= 64) return launch_simt<64>(a, stream);
+  if (a.D <= 128) return launch_simt<128>(a, stream);
+  if (a.D <= 256) return launch_simt<256>(a, stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int D>
-cudaError_t launch_wgmma(const LaunchArgs& a, cudaStream_t stream) {
-  constexpr int kKind = TcType<T>::kHalf ? 2 : 1;
-  constexpr CUtensorMapDataType kMap = TcType<T>::kMap;
-  const int smem = tc_smem_bytes<D>();
-  if (a.smem != smem || a.threads != kTcThreads) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<kKind, D>(
-      reinterpret_cast<const void*>(flash_fwd_wgmma<T, D>), smem,
-      static_cast<int>(a.device));
+template <typename T, int DP, bool kExact>
+cudaError_t launch_tc(const CUtensorMap& tq, const CUtensorMap& tk,
+                      const CUtensorMap& tv, const TcParams& p, dim3 grid,
+                      int smem, int device, cudaStream_t stream) {
+  constexpr int kKind = (TcType<T>::kHalf ? 2 : 1) + (kExact ? 2 : 0);
+  const cudaError_t err = allow_smem<kKind, DP>(
+      reinterpret_cast<const void*>(flash_fwd_wgmma<T, DP, kExact>), smem,
+      device);
   if (err != cudaSuccess) return err;
+  flash_fwd_wgmma<T, DP, kExact><<<grid, kTcThreads, smem, stream>>>(tq, tk,
+                                                                    tv, p);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_wgmma(const LaunchArgs& a, cudaStream_t stream) {
+  constexpr CUtensorMapDataType kMap = TcType<T>::kMap;
+  const int smem = tc_smem_bytes<DP>();
+  if (a.smem != smem || a.threads != kTcThreads || a.D > DP || a.D < 1)
+    return cudaErrorInvalidValue;
   const int B = static_cast<int>(a.B), Sq = static_cast<int>(a.Sq);
   const int Sk = static_cast<int>(a.Sk), H = static_cast<int>(a.H);
-  const int G = static_cast<int>(a.G);
+  const int G = static_cast<int>(a.G), D = static_cast<int>(a.D);
+  const bool q_rows = a.maps & 1, k_rows = a.maps & 2, v_rows = a.maps & 4;
+  // the kernel loads K at q's shift: q and k take the row map only
+  // together, with one kv head per q head and one shift per head
+  if (q_rows != k_rows ||
+      (q_rows && (H != G || (H > 1 && (a.q_sh - a.k_sh) % 8 != 0))))
+    return cudaErrorInvalidValue;
   // with no keys no K/V tile is ever loaded, and an empty tensor has no
   // address to map
   CUtensorMap tq, tk = {}, tv = {};
   if (!encode_map(&tq, kMap, reinterpret_cast<const void*>(a.q), D, H, Sq, B,
-                  a.q_sh, a.q_ss, a.q_sb) ||
+                  a.q_sh, a.q_ss, a.q_sb, q_rows) ||
       (Sk > 0 &&
        (!encode_map(&tk, kMap, reinterpret_cast<const void*>(a.k), D, G, Sk, B,
-                    a.k_sh, a.k_ss, a.k_sb) ||
+                    a.k_sh, a.k_ss, a.k_sb, k_rows) ||
         !encode_map(&tv, kMap, reinterpret_cast<const void*>(a.v), D, G, Sk, B,
-                    a.v_sh, a.v_ss, a.v_sb))))
+                    a.v_sh, a.v_ss, a.v_sb, v_rows))))
     return cudaErrorInvalidValue;
   TcParams p;
   p.o = reinterpret_cast<void*>(a.o);
@@ -894,21 +1077,38 @@ cudaError_t launch_wgmma(const LaunchArgs& a, cudaStream_t stream) {
   p.Sk = Sk;
   p.H = H;
   p.G = G;
+  p.D = D;
+  p.q_hcol = q_rows ? static_cast<int>(a.q_sh) : -1;
+  p.k_hcol = k_rows ? static_cast<int>(a.k_sh) : -1;
+  p.v_hcol = v_rows ? static_cast<int>(a.v_sh) : -1;
   p.o_sb = a.o_sb;
   p.o_ss = a.o_ss;
   p.o_sh = a.o_sh;
   p.scale_log2 = static_cast<float>(a.scale * 1.4426950408889634);
   p.causal = static_cast<int>(a.causal);
   const dim3 grid(static_cast<unsigned>(a.grid_x), H, B);
-  flash_fwd_wgmma<T, D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, p);
-  return cudaGetLastError();
+  const int device = static_cast<int>(a.device);
+  if (D == DP && a.maps == 0)
+    return launch_tc<T, DP, true>(tq, tk, tv, p, grid, smem, device, stream);
+  return launch_tc<T, DP, false>(tq, tk, tv, p, grid, smem, device, stream);
+}
+
+// the tensor-core kernel in element type T at the head dim padded up to
+// the next of 64, 128, 256
+template <typename T>
+cudaError_t launch_wgmma_any(const LaunchArgs& a, cudaStream_t stream) {
+  if (a.D <= 64) return launch_wgmma<T, 64>(a, stream);
+  if (a.D <= 128) return launch_wgmma<T, 128>(a, stream);
+  if (a.D <= 256) return launch_wgmma<T, 256>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes: one launch on `stream` of the
 // kernel `args->kernel` names, on device `args->device`. Returns the
-// cudaError_t of the launch (0 = launched).
+// cudaError_t of the launch (0 = launched); a kernel code or head dim no
+// instantiation takes gives cudaErrorInvalidValue.
 extern "C" int demodel_flash_attention_fwd(const LaunchArgs* args,
                                            void* stream) {
   const LaunchArgs& a = *args;
@@ -918,12 +1118,8 @@ extern "C" int demodel_flash_attention_fwd(const LaunchArgs* args,
     err = cudaSetDevice(static_cast<int>(a.device));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.kernel == 0) return launch_simt_any<float>(a, s);
-  if (a.kernel == 3) return launch_simt_any<__nv_bfloat16>(a, s);
-  if (a.kernel == 4) return launch_simt_any<__half>(a, s);
-  if (a.kernel == 1 && a.D == 64) return launch_wgmma<__nv_bfloat16, 64>(a, s);
-  if (a.kernel == 1 && a.D == 128) return launch_wgmma<__nv_bfloat16, 128>(a, s);
-  if (a.kernel == 2 && a.D == 64) return launch_wgmma<__half, 64>(a, s);
-  if (a.kernel == 2 && a.D == 128) return launch_wgmma<__half, 128>(a, s);
+  if (a.kernel == 0) return launch_simt_any(a, s);
+  if (a.kernel == 1) return launch_wgmma_any<__nv_bfloat16>(a, s);
+  if (a.kernel == 2) return launch_wgmma_any<__half>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,17 +17,24 @@ Dispatch is by the tensors' device alone:
   the JAX package;
 - CUDA tensors go to a kernel in ``csrc/flash_attention.cu``, built
   with nvcc at first use into ``build/torch_kernels/`` and loaded with
-  ctypes: bf16 and f16 at head dim 64 or 128 to the tensor-core kernel
-  (``wgmma`` over a TMA ring, one instantiation per type and head dim),
-  every other float32, bf16 or f16 shape with a head dim up to 256 to
-  the CUDA-core kernel (instantiated per type at the head dim padded to
-  32, 64, 128 or 256). A dtype or head dim that no kernel takes (float64,
-  D > 256), a build or a launch failure raises, and nothing falls back.
+  ctypes: bf16 and f16 at every head dim from 1 to 256 to the
+  tensor-core kernel (``wgmma`` over a TMA ring, instantiated per type
+  at the head dim padded to 64, 128 or 256), float32 at every head dim
+  up to 256 to the CUDA-core kernel (padded to 32, 64, 128 or 256). A
+  dtype or head dim that no kernel takes (float64, D > 256), a build or
+  a launch failure raises, and nothing falls back.
 
 :func:`launch_plan` makes every host-side choice of a launch (checks,
-kernel, windows by value or as a tensor, copies for TMA alignment, grid
-and shared memory) from the tensors' metadata alone, so the CPU tests
-reach it. A call with int windows is one launch and nothing else.
+kernel, windows by value or as a tensor, which TMA map reads each of q,
+k and v, copies where neither can, grid and shared memory) from the
+tensors' metadata alone, so the CPU tests reach it. The tensor-core
+kernel reads a tensor through a 4-D map over (D, heads, rows, batch)
+when its head stride is a multiple of 16 bytes, else through a 3-D row
+map over (heads·D, rows, batch) when its heads are packed (OpenLLaMA-3B's
+D=100: a 200-byte head stride, a 6400-byte row stride); a tensor neither
+map takes is copied once into a contiguous buffer whose head dim is
+padded to a multiple of 8 (``LaunchPlan.copy``). A call with int windows
+and no copy is one launch and nothing else.
 
 :data:`launches` counts kernel launches (one per call that reaches the
 card) and :data:`launches_by_kernel` splits them by kernel, so a run can
@@ -53,25 +60,25 @@ NEG_INF = -1e30
 #: reset it to 0 around the run they observe
 launches = 0
 #: the same launches by kernel (the names :func:`kernel_for` gives)
-launches_by_kernel = {"wgmma_bf16": 0, "wgmma_f16": 0, "simt_f32": 0,
-                      "simt_bf16": 0, "simt_f16": 0}
+launches_by_kernel = {"wgmma_bf16": 0, "wgmma_f16": 0, "simt_f32": 0}
 _launch_lock = threading.Lock()
 
 SOURCES = (_build.CSRC / "flash_attention.cu",)
 BUILD_DIR = _build.BUILD_DIR
 CUDA_DEFAULT = _build.CUDA_DEFAULT
 NVCC_FLAGS = _build.NVCC_FLAGS
-#: head dims of the tensor-core kernel's instantiations
-WGMMA_HEAD_DIMS = (64, 128)
-#: the CUDA-core kernel's head dims, each taking every D up to it
+#: padded head dims of the tensor-core kernel's instantiations, each
+#: taking every D up to it
+WGMMA_HEAD_DIMS = (64, 128, 256)
+#: the same for the CUDA-core kernel
 SIMT_HEAD_DIMS = (32, 64, 128, 256)
-MAX_HEAD_DIM = SIMT_HEAD_DIMS[-1]
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
-           torch.float16: "f16"}
+MAX_HEAD_DIM = 256
+_WGMMA = {torch.bfloat16: "wgmma_bf16", torch.float16: "wgmma_f16"}
 #: kernel name → (C enum, query rows per block, threads per block)
 KERNELS = {"simt_f32": (0, 32, 256), "wgmma_bf16": (1, 64, 160),
-           "wgmma_f16": (2, 64, 160), "simt_bf16": (3, 32, 256),
-           "simt_f16": (4, 32, 256)}
+           "wgmma_f16": (2, 64, 160)}
+#: LaunchArgs.maps bits: q, k, v read through the row map
+_ROW_MAP_BITS = (1, 2, 4)
 #: K/V ring depth of the tensor-core kernel
 STAGES = 2
 _INT32 = (-2 ** 31, 2 ** 31 - 1)
@@ -188,8 +195,8 @@ ARG_FIELDS = ("q", "k", "v", "o", "lse", "win", "kv_len", "causal_offset",
               "B", "Sq", "Sk", "H", "G", "D",
               "q_sb", "q_ss", "q_sh", "k_sb", "k_ss", "k_sh",
               "v_sb", "v_ss", "v_sh", "o_sb", "o_ss", "o_sh",
-              "causal", "kernel", "grid_x", "threads", "smem", "device",
-              "scale")
+              "causal", "kernel", "maps", "grid_x", "threads", "smem",
+              "device", "scale")
 _ARGS = struct.Struct(f"<{len(ARG_FIELDS) - 1}qd")
 
 
@@ -206,9 +213,14 @@ class LaunchPlan(NamedTuple):
     windows: str
     kv_len: int                    # scalar windows only (else 0)
     causal_offset: int
-    #: q, k, v: copy contiguous first (stride or alignment the kernel
-    #: cannot take)
+    #: q, k, v: copy first (tensor cores: contiguous, the head dim
+    #: padded to a multiple of 8, where neither TMA map reads the tensor
+    #: in place; CUDA cores: contiguous where the last stride is not 1)
     copy: tuple[bool, bool, bool]
+    #: q, k, v: how the tensor-core kernel reads each (after any copy):
+    #: "4d" (D, heads, rows, batch) or "rows" (heads·D, rows, batch);
+    #: "strides" for the CUDA-core kernel, which reads through strides
+    maps: tuple[str, str, str]
 
 
 def _as_int(x) -> int | None:
@@ -220,42 +232,65 @@ def _as_int(x) -> int | None:
     return None
 
 
-def _tma_ok(t: torch.Tensor) -> bool:
-    """Can a TMA map read the 2-byte ``t`` as it is: 16-byte aligned base,
-    unit last stride, the other strides multiples of 16 bytes (8
-    elements)."""
+def tma_map(t: torch.Tensor) -> str | None:
+    """How the tensor-core kernel's TMA maps read the 2-byte ``t``
+    ``(B, S, heads, D)`` in place, or None: both maps need a unit last
+    stride, a 16-byte aligned base and row and batch strides that are
+    multiples of 16 bytes (8 elements); the 4-D map ("4d") a head stride
+    that is one too. The row map ("rows") needs packed heads (head
+    stride D, or one head): a head's tile starts at its first column
+    rounded down to a multiple of 8, so the head sits up to 7 columns in
+    and those plus D must fit the padded head dim."""
+    B, S, heads, D = t.shape
     sb, ss, sh, sd = t.stride()
-    return sd == 1 and (sb | ss | sh) % 8 == 0 and t.data_ptr() % 16 == 0
+    if sd != 1 or (sb | ss) % 8 or t.data_ptr() % 16:
+        return None
+    if sh % 8 == 0:
+        return "4d"
+    if heads == 1:
+        return "rows"
+    shift = max((h * sh) % 8 for h in range(min(heads, 8)))
+    if sh == D and D + shift <= padded_head_dim("wgmma", D):
+        return "rows"
+    return None
+
+
+def _pad8(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a contiguous zero buffer whose head dim is padded
+    to a multiple of 8, as a view of its first D columns: the 4-D map
+    reads it (every stride a multiple of 16 bytes)."""
+    D = t.shape[3]
+    buf = t.new_zeros((*t.shape[:3], -(-D // 8) * 8))
+    buf[..., :D] = t
+    return buf[..., :D]
 
 
 def kernel_for(dtype: torch.dtype, D: int) -> str:
-    """The kernel that takes ``dtype`` at head dim ``D``: bf16 and f16 at
-    :data:`WGMMA_HEAD_DIMS` on the tensor cores, every other float32,
-    bf16 or f16 head dim up to :data:`MAX_HEAD_DIM` on the CUDA cores.
-    Raises on what no kernel takes."""
-    if dtype not in _SUFFIX:
+    """The kernel that takes ``dtype`` at head dim ``D``: bf16 and f16 on
+    the tensor cores, float32 on the CUDA cores, each at every head dim
+    from 1 to :data:`MAX_HEAD_DIM`. Raises on what no kernel takes."""
+    if dtype != torch.float32 and dtype not in _WGMMA:
         raise TypeError(f"flash kernel takes float32, bfloat16 or float16, "
                         f"got {dtype}")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"flash kernel takes head dims 1..{MAX_HEAD_DIM}, "
                          f"got {D}")
-    if dtype != torch.float32 and D in WGMMA_HEAD_DIMS:
-        return f"wgmma_{_SUFFIX[dtype]}"
-    return f"simt_{_SUFFIX[dtype]}"
+    return _WGMMA.get(dtype, "simt_f32")
 
 
-def padded_head_dim(D: int) -> int:
-    """The CUDA-core kernel's instantiation that takes head dim ``D``."""
-    return next(dp for dp in SIMT_HEAD_DIMS if D <= dp)
+def padded_head_dim(kernel: str, D: int) -> int:
+    """The instantiation of ``kernel`` that takes head dim ``D``."""
+    dims = WGMMA_HEAD_DIMS if kernel.startswith("wgmma") else SIMT_HEAD_DIMS
+    return next(dp for dp in dims if D <= dp)
 
 
 def smem_bytes(kernel: str, D: int) -> int:
-    """Dynamic shared memory of one block (mirrors csrc's
-    ``tc_smem_bytes`` and ``smem_floats``, the latter at the padded head
-    dim: 98,432 bytes at 256)."""
+    """Dynamic shared memory of one block at the padded head dim (mirrors
+    csrc's ``tc_smem_bytes``, 164,864 bytes at 256, and ``smem_floats``,
+    98,432 bytes at 256)."""
+    dp = padded_head_dim(kernel, D)
     if kernel.startswith("wgmma"):
-        return 64 * D * 2 * (1 + 2 * STAGES) + 1024
-    dp = padded_head_dim(D)
+        return 64 * dp * 2 * (1 + 2 * STAGES) + 1024
     return 4 * (32 * dp + 32 * (dp + 1) + 32 * dp)
 
 
@@ -275,9 +310,16 @@ def launch_plan(q, k, v, kv_len=None, causal_offset=None) -> LaunchPlan:
         raise ValueError(f"grid too large: B={B}, H={H}")
     code, rows, threads = KERNELS[kernel]
     if kernel.startswith("wgmma"):
-        copy = tuple(not _tma_ok(t) for t in (q, k, v))
+        found = [tma_map(t) for t in (q, k, v)]
+        # q's and k's heads must sit at one shift into their tiles: the
+        # row map takes them only together, with one kv head per q head
+        if "rows" in found[:2] and (found[0] != found[1] or H != G):
+            found[:2] = [None if m == "rows" else m for m in found[:2]]
+        copy = tuple(m is None for m in found)
+        maps = tuple(m or "4d" for m in found)
     else:
         copy = tuple(t.stride(-1) != 1 for t in (q, k, v))
+        maps = ("strides",) * 3
     kv = Sk if kv_len is None else _as_int(kv_len)
     off = None
     if kv is not None:
@@ -289,7 +331,7 @@ def launch_plan(q, k, v, kv_len=None, causal_offset=None) -> LaunchPlan:
     return LaunchPlan(kernel=kernel, code=code,
                       grid=(-(-Sq // rows), H, B), threads=threads,
                       smem_bytes=smem_bytes(kernel, D), windows=windows,
-                      kv_len=kv, causal_offset=off, copy=copy)
+                      kv_len=kv, causal_offset=off, copy=copy, maps=maps)
 
 
 def _flash_cuda(q, k, v, kv_len, causal_offset, causal: bool, scale: float,
@@ -299,8 +341,9 @@ def _flash_cuda(q, k, v, kv_len, causal_offset, causal: bool, scale: float,
     global launches
     plan = launch_plan(q, k, v, kv_len, causal_offset)
     if any(plan.copy):
-        q, k, v = (t.contiguous() if c else t
-                   for t, c in zip((q, k, v), plan.copy))
+        copy = _pad8 if plan.kernel.startswith("wgmma") else \
+            torch.Tensor.contiguous
+        q, k, v = (copy(t) if c else t for t, c in zip((q, k, v), plan.copy))
     B, Sq, H, D = q.shape
     Sk, G = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -321,8 +364,9 @@ def _flash_cuda(q, k, v, kv_len, causal_offset, causal: bool, scale: float,
         0 if win is None else win.data_ptr(),
         plan.kv_len, plan.causal_offset, B, Sq, Sk, H, G, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], int(causal), plan.code, plan.grid[0],
-        plan.threads, plan.smem_bytes, device, float(scale))
+        *out.stride()[:3], int(causal), plan.code,
+        sum(bit for bit, m in zip(_ROW_MAP_BITS, plan.maps) if m == "rows"),
+        plan.grid[0], plan.threads, plan.smem_bytes, device, float(scale))
     err = lib.demodel_flash_attention_fwd(
         args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

@@ -245,6 +245,7 @@ def test_plan_copies_only_what_tma_cannot_read():
     assert tfa.launch_plan(q, wide, wide).copy == (False, False, False)
     assert tfa.launch_plan(q, padded, wide).copy == (False, True, False)
     assert tfa.launch_plan(q, wide, shifted).copy == (False, False, True)
+    assert tfa.launch_plan(q, padded, wide).maps == ("4d",) * 3
     # the CUDA-core kernel reads any strides with a unit last one
     fq = torch.zeros(2, 32, 8, 128)
     fpadded = torch.zeros(2, 40, 2, 132)[..., :128]
@@ -256,8 +257,8 @@ def test_plan_copies_only_what_tma_cannot_read():
 
 
 @pytest.mark.parametrize("q,k,err", [
-    # head dims without a tensor-core instantiation go to the CUDA cores
-    (_bf16(1, 8, 4, 32), _bf16(1, 8, 4, 32), "simt_bf16"),     # D=32
+    # every bf16 head dim up to 256 goes to the tensor cores
+    (_bf16(1, 8, 4, 32), _bf16(1, 8, 4, 32), "wgmma_bf16"),    # D=32
     # float16 has its tensor-core kernel: planned, not refused
     (torch.zeros(1, 8, 4, 64, dtype=torch.float16),
      torch.zeros(1, 8, 4, 64, dtype=torch.float16), "wgmma_f16"),
@@ -277,40 +278,148 @@ def test_plan_rejects_what_no_kernel_takes(q, k, err):
         tfa.launch_plan(q, k, k)
 
 
-#: head dims no tensor-core instantiation takes, with the CUDA-core
-#: kernel's padded head dim for each
-ODD_HEAD_DIMS = {8: 32, 32: 32, 80: 128, 96: 128, 256: 256}
+#: head dims other than 64 and 128 (100: OpenLLaMA-3B's), with the
+#: padded head dim of the CUDA-core (f32) and the tensor-core (bf16, f16)
+#: instantiation that takes each
+ODD_HEAD_DIMS = {8: (32, 64), 32: (32, 64), 80: (128, 128), 96: (128, 128),
+                 100: (128, 128), 256: (256, 256)}
 
 
-@pytest.mark.parametrize("dtype,suffix", [
-    (torch.float32, "f32"), (torch.bfloat16, "bf16"),
-    (torch.float16, "f16")], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("dtype,suffix", [(torch.float32, "f32")],
+                         ids=["f32"])
 @pytest.mark.parametrize("D", sorted(ODD_HEAD_DIMS))
 def test_plan_every_head_dim_goes_to_cuda_cores(D, dtype, suffix):
-    """Every float32, bf16 or f16 head dim without a tensor-core
-    instantiation: the CUDA-core kernel in that type, 32 rows a block,
+    """Every float32 head dim: the CUDA-core kernel, 32 rows a block,
     shared memory for the padded head dim (98,432 bytes at 256, above
     the 48 KB default)."""
     q = torch.zeros(1, 512, 32, D, dtype=dtype)
     k = torch.zeros(1, 512, 8, D, dtype=dtype)
     plan = tfa.launch_plan(q, k, k, kv_len=512)
-    dp = ODD_HEAD_DIMS[D]
+    dp = ODD_HEAD_DIMS[D][0]
     assert plan.kernel == f"simt_{suffix}"
     assert plan.code == tfa.KERNELS[plan.kernel][0]
     assert (plan.grid, plan.threads) == ((16, 32, 1), 256)
+    assert tfa.padded_head_dim(plan.kernel, D) == dp
     assert plan.smem_bytes == 4 * (32 * dp + 32 * (dp + 1) + 32 * dp)
     assert plan.copy == (False, False, False)
+    assert plan.maps == ("strides",) * 3
     assert plan.kernel in tfa.launches_by_kernel
     if D == 256:
         assert plan.smem_bytes == 98432
 
 
+@pytest.mark.parametrize("dtype,suffix", [
+    (torch.bfloat16, "bf16"), (torch.float16, "f16")], ids=["bf16", "f16"])
+@pytest.mark.parametrize("D", sorted(ODD_HEAD_DIMS))
+def test_plan_every_head_dim_goes_to_tensor_cores(D, dtype, suffix):
+    """Every bf16 or f16 head dim: the tensor-core kernel at the head dim
+    padded to 64, 128 or 256, 64 rows a block, shared memory for the Q
+    tile and the 2-stage K/V ring at that width (164,864 bytes at 256:
+    one block an SM), q/k/v read in place through the 4-D map where the
+    head stride is a multiple of 16 bytes."""
+    q = torch.zeros(1, 512, 32, D, dtype=dtype)
+    k = torch.zeros(1, 512, 8, D, dtype=dtype)
+    plan = tfa.launch_plan(q, k, k, kv_len=512)
+    dp = ODD_HEAD_DIMS[D][1]
+    assert plan.kernel == f"wgmma_{suffix}"
+    assert plan.code == tfa.KERNELS[plan.kernel][0]
+    assert (plan.grid, plan.threads) == ((8, 32, 1), 160)
+    assert tfa.padded_head_dim(plan.kernel, D) == dp
+    assert plan.smem_bytes == 64 * dp * 2 * 5 + 1024
+    if D % 8:
+        # D=100 with 4 q heads a kv head: q and k padded for the 4-D map
+        assert plan.copy == (True, True, False)
+        assert plan.maps == ("4d", "4d", "rows")
+    else:
+        assert plan.copy == (False, False, False)
+        assert plan.maps == ("4d",) * 3
+    assert plan.kernel in tfa.launches_by_kernel
+    if D == 256:
+        assert plan.smem_bytes == 164864
+
+
+def test_plan_d100_reads_q_and_the_kv_cache_in_place():
+    """OpenLLaMA-3B's shapes (H=G=32, D=100: a 200-byte head stride that
+    no 4-D map takes): q and k/v as views of a 2048-row KV cache, or as
+    a head slice of a wider buffer, go through the row map with no copy;
+    D=80 (160-byte heads) through the 4-D map."""
+    f16 = torch.float16
+    q = torch.zeros(1, 512, 32, 100, dtype=f16)
+    cache = torch.zeros(1, 2048, 32, 100, dtype=f16)
+    plan = tfa.launch_plan(q, cache[:, :1024], cache[:, :1024], kv_len=900)
+    assert (plan.kernel, plan.windows) == ("wgmma_f16", "scalar")
+    assert (plan.kv_len, plan.causal_offset) == (900, 388)
+    assert plan.copy == (False, False, False)
+    assert plan.maps == ("rows", "rows", "rows")
+    wide = torch.zeros(1, 512, 64, 100, dtype=f16)[:, :, 32:]  # 6400 B in
+    assert tfa.tma_map(wide) == "rows"
+    assert tfa.launch_plan(q, wide, wide).maps == ("rows",) * 3
+    q80 = torch.zeros(1, 512, 32, 80, dtype=f16)
+    assert tfa.launch_plan(q80, q80, q80).maps == ("4d",) * 3
+
+
+@pytest.mark.parametrize("view,want", [
+    ("contiguous", "rows"),
+    ("column_slice_8", "4d"),      # 104-wide rows: a 208-byte head stride
+    ("column_slice_2", None),      # 102-wide rows: heads not packed
+    ("one_head_rows", None),       # 200-byte rows
+    ("shifted_base", None),        # base 2 bytes off 16-byte alignment
+    ("odd_head_dim", None),        # D=255: a shift of up to 7 passes 256
+])
+def test_plan_pads_what_no_map_takes(view, want):
+    """The padding rule: a bf16 tensor that no TMA map reads in place is
+    copied once into a contiguous zero buffer whose head dim is padded to
+    a multiple of 8, which the 4-D map reads; the values and the plan's
+    kernel are unchanged."""
+    def rnd(*shape):
+        g = torch.Generator().manual_seed(0)
+        return torch.randn(*shape, generator=g).to(torch.bfloat16)
+
+    t = {"contiguous": lambda: rnd(2, 16, 4, 100),
+         "column_slice_8": lambda: rnd(2, 16, 4, 104)[..., :100],
+         "column_slice_2": lambda: rnd(2, 16, 4, 102)[..., :100],
+         "one_head_rows": lambda: rnd(2, 16, 1, 100),
+         "shifted_base": lambda: rnd(2 * 16 * 4 * 100 + 1)[1:].view(
+             2, 16, 4, 100),
+         "odd_head_dim": lambda: rnd(2, 16, 8, 255)}[view]()
+    assert tfa.tma_map(t) == want
+    plan = tfa.launch_plan(t, t, t)
+    assert plan.kernel == "wgmma_bf16"
+    assert plan.copy == (want is None,) * 3
+    assert plan.maps == (want or "4d",) * 3
+    padded = tfa._pad8(t)
+    D, D8 = t.shape[3], -(-t.shape[3] // 8) * 8
+    assert padded.shape == t.shape and torch.equal(padded, t)
+    assert padded.stride()[2:] == (D8, 1)
+    assert tfa.tma_map(padded) == "4d"
+    tail = padded.as_strided((*t.shape[:3], D8 - D),
+                             (*padded.stride()[:3], 1), D)
+    assert not tail.any()
+
+
+@pytest.mark.parametrize("G,maps,copy", [
+    (32, ("rows", "rows", "rows"), (False, False, False)),
+    (8, ("4d", "4d", "rows"), (True, True, False)),
+], ids=["one_kv_head_per_q_head", "gqa"])
+def test_plan_row_map_takes_q_and_k_only_together(G, maps, copy):
+    """Through the row map a head sits (head·D) % 8 columns into its tile
+    (4 for odd heads at D=100), and Q·Kᵀ needs q's and k's heads at one
+    shift: so q and k take the row map together and only with one kv
+    head per q head; with GQA the plan pads copies of q and k for the
+    4-D map, and v still takes the row map."""
+    q = torch.zeros(1, 64, 32, 100, dtype=torch.float16)
+    kv = torch.zeros(1, 64, G, 100, dtype=torch.float16)
+    plan = tfa.launch_plan(q, kv, kv)
+    assert (plan.maps, plan.copy) == (maps, copy)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D", sorted(ODD_HEAD_DIMS))
 def test_flash_matches_jax_kernel_at_every_head_dim(D, dtype):
-    """The function the CUDA-core kernel computes at each head dim it now
-    takes, against the Pallas kernel in interpret mode: GQA, causal, a
-    per-batch kv_len; f32 at 2e-5, bf16 at 2e-2 (the reference's
+    """The function the kernels compute at head dims other than 64 and 128
+    (the f32 CUDA-core kernel, the bf16 tensor-core kernel at the padded
+    head dim), against the Pallas kernel in interpret mode: GQA, causal,
+    a per-batch kv_len; f32 at 2e-5, bf16 at 2e-2 (the reference's
     tolerances)."""
     q, k, v = _inputs(2, 20, 24, 4, 2, D, seed=D)
     kv_len = [24, 13]
@@ -390,19 +499,21 @@ def test_routing_default_is_the_device(monkeypatch, device, want):
 
 
 @pytest.mark.parametrize("dtype,D,err", [
-    (torch.float16, 8, "simt_f16"),       # LlamaConfig.tiny() in f16
+    (torch.float16, 8, "wgmma_f16"),      # LlamaConfig.tiny() in f16
     (torch.float32, 32, "simt_f32"),
-    (torch.bfloat16, 96, "simt_bf16"),
+    (torch.bfloat16, 96, "wgmma_bf16"),
+    (torch.float16, 100, "wgmma_f16"),    # OpenLLaMA-3B
     (torch.float64, 128, TypeError),
     (torch.bfloat16, 320, ValueError),
-], ids=["f16_d8", "f32_d32", "bf16_d96", "f64_d128", "bf16_d320"])
+], ids=["f16_d8", "f32_d32", "bf16_d96", "f16_d100", "f64_d128",
+        "bf16_d320"])
 def test_cuda_shape_without_kernel_raises_not_einsum(monkeypatch, dtype, D,
                                                      err):
-    """Unset, every CUDA shape routes to the kernel: each float32, bf16
-    or f16 head dim up to 256 is planned on a kernel, and what no kernel
-    takes (float64, a head dim past 256) raises in the plan. Nothing on
-    the card drops to einsum unless the caller says
-    ``DEMODEL_FLASH_ATTN=0``."""
+    """Unset, every CUDA shape routes to the kernel: each bf16 or f16 head
+    dim up to 256 is planned on the tensor-core kernel and each float32
+    one on the CUDA-core kernel, and what no kernel takes (float64, a
+    head dim past 256) raises in the plan. Nothing on the card drops to
+    einsum unless the caller says ``DEMODEL_FLASH_ATTN=0``."""
     monkeypatch.delenv("DEMODEL_FLASH_ATTN", raising=False)
     assert tfd.use_flash_attention("cuda")
     q = torch.empty(1, 4, 8, D, dtype=dtype, device="meta")
@@ -422,7 +533,7 @@ def test_cuda_shape_without_kernel_raises_not_einsum(monkeypatch, dtype, D,
 def test_llama_asks_the_rule_per_layer(monkeypatch, env, want_calls):
     """The model asks the rule with its tensors' device at every layer:
     as if they were on CUDA, the tiny config's head dim of 8 reaches the
-    kernel wrapper (on the card, the CUDA-core kernel);
+    kernel wrapper (on the card, the f32 CUDA-core kernel);
     ``DEMODEL_FLASH_ATTN=0`` keeps it on einsum."""
     from demodel_tpu_torch.models import common as tcommon
     from demodel_tpu_torch.models import llama as tl
@@ -450,18 +561,11 @@ def test_llama_asks_the_rule_per_layer(monkeypatch, env, want_calls):
     assert len(called) == want_calls
 
 
-@pytest.mark.parametrize("dtype,kernel", [("float32", "simt_f32"),
-                                          ("bfloat16", "simt_bf16"),
-                                          ("float16", "simt_f16")])
-def test_tiny_config_goes_through_the_cuda_core_kernel(monkeypatch, dtype,
-                                                       kernel):
-    """``LlamaConfig.tiny()`` (head dim 8): its prefill's q/k/v plan onto
-    the CUDA-core kernel in the model's type, and its fp32 logits through
-    the kernel's plain version stay within 2e-4 of the JAX package's."""
+def _tiny_plan(dtype: str):
+    """The launch plan of ``LlamaConfig.tiny()``'s prefill q/k/v (9
+    tokens) in ``dtype``, and the config."""
     import dataclasses
 
-    from demodel_tpu.models import llama as jl
-    from demodel_tpu_torch.models import convert
     from demodel_tpu_torch.models import llama as tl
 
     tcfg = dataclasses.replace(tl.LlamaConfig.tiny(), dtype=dtype)
@@ -470,9 +574,33 @@ def test_tiny_config_goes_through_the_cuda_core_kernel(monkeypatch, dtype,
                     dtype=tcfg.torch_dtype)
     k = torch.zeros(1, T, tcfg.num_key_value_heads, tcfg.head_dim,
                     dtype=tcfg.torch_dtype)
-    assert tfa.launch_plan(q, k, k, kv_len=T).kernel == kernel
-    if dtype != "float32":
-        return
+    return tfa.launch_plan(q, k, k, kv_len=T), tcfg
+
+
+@pytest.mark.parametrize("dtype,kernel", [("bfloat16", "wgmma_bf16"),
+                                          ("float16", "wgmma_f16")])
+def test_tiny_config_plans_on_its_dtype_kernel(dtype, kernel):
+    """``LlamaConfig.tiny()`` (head dim 8) in bf16 and f16: its prefill's
+    q/k/v plan onto the tensor-core kernel of the model's type, at
+    padded head dim 64."""
+    plan, tcfg = _tiny_plan(dtype)
+    assert plan.kernel == kernel
+    assert tfa.padded_head_dim(plan.kernel, tcfg.head_dim) == 64
+
+
+@pytest.mark.parametrize("dtype,kernel", [("float32", "simt_f32")])
+def test_tiny_config_goes_through_the_cuda_core_kernel(monkeypatch, dtype,
+                                                       kernel):
+    """``LlamaConfig.tiny()`` (head dim 8) in f32: its prefill's q/k/v
+    plan onto the CUDA-core kernel, and its fp32 logits through the
+    kernel's plain version stay within 2e-4 of the JAX package's."""
+    from demodel_tpu.models import llama as jl
+    from demodel_tpu_torch.models import convert
+    from demodel_tpu_torch.models import llama as tl
+
+    plan, tcfg = _tiny_plan(dtype)
+    assert plan.kernel == kernel
+    T = 9
     monkeypatch.setenv("DEMODEL_FLASH_ATTN", "1")
     jcfg = jl.LlamaConfig.tiny()
     jparams = jax.jit(jl.init_params, static_argnums=(1,))(
