@@ -17,28 +17,37 @@ Phases, each printing one line:
    library, started together; the library must hold exactly the flash
    instantiations ``wgmma_{bf16,f16}_d{64,128,256}`` (any D up to the
    padded one), the same with ``_exact`` (D equal to it, no run-time
-   guard) and ``simt_f32_d{32,64,128,256}``, each with 0 spill bytes
-   in its ptxas line (registers, spills and ptxas's injected
+   guard) and ``tf32x3_f32_d{16,32,...,256}`` (f32 by three TF32
+   products, at every multiple of 16), each with 0 spill bytes in its
+   ptxas line (registers, spills and ptxas's injected
    ``warpgroup.arrive`` count printed per instantiation), and
-   ``cuobjdump -sass`` must count tensor-core (HGMMA) instructions in
-   each ``wgmma`` one;
+   ``cuobjdump -sass`` must count tensor-core
+   instructions in each: HGMMA in the ``wgmma`` ones,
+   HMMA.1688.F32.TF32 in the ``tf32x3`` ones;
 3. kernel — the flash kernels against their plain PyTorch version on the
    card at every main-path prompt length (17, 64, 96, 128, 512), at
    2048, and in every masking case (GQA, ragged decode, a kv_len-0 row,
    Sq > kv_len, non-causal, no keys at all, D=64, strided and misaligned
-   k/v views, f32, return_lse), f16 at 17, 512 and 2048, head dims 8,
-   32, 80, 96 and 256 (S=512, H=32, G=8) and the tiny config's prefill
-   shape in f32 (CUDA cores), bf16 and f16 (tensor cores), OpenLLaMA-3B's
-   D=100 at H=G=32 in bf16 and f16 at S=512 and 2048, from a view of
-   its KV cache, and with GQA (the padded copy), odd head dims (D=99
-   through the row map, D=33 from views padded to 40) in bf16 and f16,
+   k/v views, f32, return_lse), f16 at 17, 512 and 2048, f32 at D=128
+   (S=512 and 2048, and the strided views), head dims 8, 32, 80, 96 and
+   256 (S=512, H=32, G=8) and the tiny config's prefill shape in f32,
+   bf16 and f16, OpenLLaMA-3B's D=100 at H=G=32 in bf16, f16 and f32 at
+   S=512 and 2048, from a view of its KV cache, and with GQA (the padded
+   copy), odd head dims (D=99 through the row map in bf16 and f16, by
+   4-byte copies in f32; D=33 from views padded to 40) in bf16 and f16,
    each with the call time
    (CUDA events), the device time per call (torch.profiler, or the call
    time where every trace lost the work) of the kernel and of SDPA, the
    plain version's time and the roofline bound; then a ``floors`` line
    that sets the first redesign's targets beside what was measured, and a
    ``head_dim_floors`` line with the bf16/f16 device time over SDPA's at
-   D 80, 96, 100 and 256 (target 2x, reported);
+   D 80, 96, 100 and 256 (target 2x, reported), and an ``f32_floors``
+   line with the f32 device time over SDPA's at every f32 head dim
+   (target 1x, reported) beside SDPA's kernels;
+3b. grads — grads through K1 on the card in bf16 and f32, with and
+   without the LSE: one launch a forward (and under ``inference_mode``),
+   dq, dk, dv finite and within the dtype's limit of autograd through
+   ``reference_attention_lse`` on the same tensors;
 4. dequant — each GGUF dequant kernel (csrc/dequant.cu: Q8_0, Q4_0 and
    the five K-quants) against its plain PyTorch version on the card at
    the ffn_gate shape 11008×4096 in bf16 and f32, and at 1, 3, 257 and 0
@@ -86,17 +95,20 @@ Phases, each printing one line:
    17-token prompt's tokens equal the pull phase's, K1 launches all on
    ``wgmma_f16``; then the gossip thread and the proxy stop;
 11. tiny — ``LlamaConfig.tiny()`` (head dim 8) in f32, bf16 and f16:
-   served through K1 by default (f32 on ``simt_f32``, bf16 and f16 on
+   served through K1 by default (f32 on ``tf32x3_f32``, bf16 and f16 on
    ``wgmma_*`` at padded head dim 64), engine tokens equal to
    ``generate``; under the caller's explicit ``DEMODEL_FLASH_ATTN=0``
    served on the einsum path with no K1 launch;
 12. openllama — OpenLLaMA-3B's widths (its ``config.json``: hidden 3200,
-   32 heads of 100, 26 layers, intermediate 8640, f16; seeded random
-   weights, 6.85 GB) on the card: prefill logits of the kernel path
-   against the plain path at 17, 128, 512 and 2048 tokens, K1's share of
-   the 512-token prefill's device time, then ``serve.boot`` and prompts
-   of 17, 128 and 512 tokens over HTTP with first tokens the argmax of
-   their kernel-path logits and all 78 K1 launches on ``wgmma_f16``.
+   32 heads of 100, 26 layers, intermediate 8640; seeded random
+   weights) on the card, in f16 (6.85 GB) and then in f32 (13.7 GB, as
+   an F32 checkpoint is built in its stored dtype): prefill logits of
+   the kernel path against the plain path at 17, 128, 512 and 2048
+   tokens (f32 within 1e-3), K1's share of the 512- and 2048-token
+   prefills' device time, then ``serve.boot`` and prompts of 17, 128 and
+   512 tokens over HTTP with first tokens the argmax of their kernel-path
+   logits and all 78 K1 launches of a leg on ``wgmma_f16`` or
+   ``tf32x3_f32``.
 
 Then the card line from nvidia-smi, a JSON line with the kernels, and
 last ``{"ok": true, "device": {...}}``. Any failed phase raises (exit
@@ -131,9 +143,12 @@ TOL = {"bfloat16": BF16_TOL, "float16": F16_TOL, "float32": F32_TOL}
 #: bf16), relative L2 error: bf16 scores in the plain path round to 8 bits
 #: before the softmax and the difference compounds over 32 layers
 LOGITS_REL_TOL = 5e-2
-#: peak rates of one H100 SXM (NVIDIA data sheet, dense): bf16 tensor
-#: cores, fp32 CUDA cores, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+#: peak rates of one H100 SXM (NVIDIA data sheet, dense): bf16/f16 tensor
+#: cores; for exact f32 work the faster of the CUDA cores (67 TFLOP/s) and
+#: three TF32 products a pair on the tensor cores (495 / 3 = 165 TFLOP/s,
+#: the split K1's f32 kernel runs); HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,
+              "float32": max(67e12, 495e12 / 3)}
 PEAK_BYTES = 3.35e12
 NEG_INF = -1e30
 
@@ -198,31 +213,35 @@ def phase_device() -> str:
     return smi
 
 
-#: the flash instantiations the library must hold: the tensor-core kernel
+#: the flash instantiations the library must hold: the ``wgmma`` kernel
 #: in bf16 and f16 at each padded head dim, for any D up to it and for D
-#: equal to it (``_exact``), the CUDA-core one in f32
+#: equal to it (``_exact``), the 3xTF32 ``mma.sync`` one in f32
 FLASH_INSTANTIATIONS = sorted(
     [f"wgmma_{t}_d{dp}{x}" for t in ("bf16", "f16") for dp in (64, 128, 256)
      for x in ("", "_exact")]
-    + [f"simt_f32_d{dp}" for dp in (32, 64, 128, 256)])
+    + [f"tf32x3_f32_d{dp}" for dp in range(16, 257, 16)])
+#: the tensor-core instruction each kind of instantiation must hold in its
+#: SASS: Hopper's warpgroup MMA, and the TF32 m16n8k8 MMA of mma.sync
+TC_SASS = {"wgmma": "HGMMA", "tf32x3": "HMMA.1688.F32.TF32"}
 
 
 def _instantiation(fn: str) -> str | None:
     """``wgmma_bf16_d128`` for the mangled ``flash_fwd_wgmma<bf16, 128,
-    false>`` (``_exact`` appended for ``true``), ``simt_f32_d64`` for
-    ``flash_fwd_kernel<64>``; None for the rest."""
+    false>`` (``_exact`` appended for ``true``), ``tf32x3_f32_d64`` for
+    ``flash_fwd_tf32x3<64>``; None for the rest."""
     m = re.search(r"flash_fwd_wgmmaI(6__half|13__nv_bfloat16)"
                   r"Li(\d+)ELb([01])E", fn)
     if m:
         return (f"wgmma_{'f16' if m[1] == '6__half' else 'bf16'}_d{m[2]}"
                 f"{'_exact' if m[3] == '1' else ''}")
-    m = re.search(r"flash_fwd_kernelILi(\d+)E", fn)
-    return f"simt_f32_d{m[1]}" if m else None
+    m = re.search(r"flash_fwd_tf32x3ILi(\d+)E", fn)
+    return f"tf32x3_f32_d{m[1]}" if m else None
 
 
-def _hgmma_counts(lib) -> dict[str, int]:
-    """Tensor-core (HGMMA) instructions in each flash kernel function of
-    the built library, from ``cuobjdump -sass``."""
+def _tensor_core_counts(lib) -> dict[str, dict[str, int]]:
+    """Tensor-core instructions (HGMMA and HMMA.1688.F32.TF32) in each
+    flash kernel function of the built library, from ``cuobjdump
+    -sass``."""
     from pathlib import Path
 
     from demodel_tpu_torch.ops import _build
@@ -230,16 +249,18 @@ def _hgmma_counts(lib) -> dict[str, int]:
     tool = Path(_build.find_nvcc(_build.CUDA_DEFAULT)).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    counts: dict[str, int] = {}
+    counts: dict[str, dict[str, int]] = {}
     fn = None
     for ln in sass.splitlines():
         s = ln.strip()
         if s.startswith("Function :"):
             fn = _instantiation(s.split(":", 1)[1].strip())
             if fn is not None:
-                counts[fn] = 0
-        elif fn is not None and "HGMMA" in s:
-            counts[fn] += 1
+                counts[fn] = dict.fromkeys(TC_SASS.values(), 0)
+        elif fn is not None:
+            for op in TC_SASS.values():
+                if op in s:
+                    counts[fn][op] += 1
     return counts
 
 
@@ -299,16 +320,17 @@ def phase_build() -> None:
     dequant_ptxas = [ln.strip() for ln in libs["dequant"].with_suffix(".log")
                      .read_text().splitlines()
                      if "registers" in ln or "spill" in ln]
-    hgmma = _hgmma_counts(libs["flash_attention"])
+    tc = _tensor_core_counts(libs["flash_attention"])
     _say("build", seconds=round(secs, 3),
          libraries={k: lib.name for k, lib in libs.items()},
          ptxas={"flash_attention": flash_ptxas, "dequant": dequant_ptxas},
-         hgmma=hgmma)
-    tc = {k: n for k, n in hgmma.items() if k.startswith("wgmma")}
-    if sorted(hgmma) != FLASH_INSTANTIATIONS or min(tc.values()) == 0:
-        raise AssertionError(f"flash instantiations {sorted(hgmma)} (want "
-                             f"{FLASH_INSTANTIATIONS}), or bf16/f16 ones "
-                             f"without tensor-core instructions: {hgmma}")
+         tensor_core=tc)
+    missing = [k for k, n in tc.items()
+               if n[TC_SASS[k.split("_")[0]]] == 0]
+    if sorted(tc) != FLASH_INSTANTIATIONS or missing:
+        raise AssertionError(f"flash instantiations {sorted(tc)} (want "
+                             f"{FLASH_INSTANTIATIONS}), or ones without "
+                             f"their tensor-core instructions: {missing}")
     spills = {k: v for k, v in flash_ptxas.items()
               if v.get("spill_bytes", 1) != 0}
     if sorted(flash_ptxas) != FLASH_INSTANTIATIONS or spills:
@@ -356,30 +378,37 @@ CASES = [
     _case("f32_prefill", 1, 200, 200, 32, 32, 128, "float32", lse=True),
     _case("f32_d64_gqa_lse", 2, 70, 90, 8, 2, 64, "float32", causal=False,
           lse=True),
+    # an F32 Llama-2-7B checkpoint's prefill, and the strided views (k a
+    # column slice of padded rows, v a head slice) read in place in f32
+    *(_case(f"f32_d128_s{S}", 1, S, S, 32, 32, 128, "float32")
+      for S in (512, 2048)),
+    _case("strided_kv_float32", 2, 130, 150, 32, 8, 128, "float32",
+          kv_len=140, lse=True, view="strided"),
     # a pulled F16 Llama-2 checkpoint's prefill
     _case("f16_prefill_s17", 1, 17, 17, 32, 32, 128, "float16"),
     _case("f16_prefill_s512", 1, 512, 512, 32, 32, 128, "float16", lse=True),
     _case("f16_prefill_s2048", 1, 2048, 2048, 32, 32, 128, "float16"),
-    # other head dims: the tensor-core kernel at the padded head dim in bf16
-    # and f16, the CUDA-core kernel in f32 (B=1, S=512, H=32, G=8, causal)
+    # other head dims, each kernel at its padded head dim: wgmma in bf16
+    # and f16, 3xTF32 in f32 (B=1, S=512, H=32, G=8, causal)
     *(_case(f"d{D}_{dt}", 1, 512, 512, 32, 8, D, dt)
       for D in (8, 32, 80, 96, 256)
       for dt in ("float32", "bfloat16", "float16")),
-    # OpenLLaMA-3B's prefill (H=G=32, D=100: a head stride TMA cannot
-    # map, so q, k and v go through the row map), and k/v read from its
-    # KV cache with kv_len < Sk
+    # OpenLLaMA-3B's prefill (H=G=32, D=100: in bf16/f16 a head stride
+    # TMA cannot map, so q, k and v go through the row map; in f32 a
+    # 400-byte one, read in place by 16-byte copies), and k/v read from
+    # its KV cache with kv_len < Sk
     *(_case(f"openllama_s{S}_{dt}", 1, S, S, 32, 32, 100, dt)
-      for S in (512, 2048) for dt in ("bfloat16", "float16")),
+      for S in (512, 2048) for dt in ("bfloat16", "float16", "float32")),
     _case("openllama_kv_cache_float16", 1, 512, 1024, 32, 32, 100,
           "float16", kv_len=900, lse=True, view="cache"),
     # D=100 with GQA: q and k heads at different shifts, so the plan pads
     # copies of q and k for the 4-D map (v through the row map)
     _case("d100_gqa_float16", 1, 512, 512, 32, 8, 100, "float16"),
     # odd head dims, stored one column at a time: D=99 with packed heads
-    # (row map, the heads at every shift 0..7), D=33 read from views
-    # padded to 40 columns (4-D map)
+    # (row map, the heads at every shift 0..7; in f32 4-byte copies), D=33
+    # read from views padded to 40 columns (4-D map)
     *(_case(f"d99_{dt}", 1, 512, 512, 32, 32, 99, dt)
-      for dt in ("bfloat16", "float16")),
+      for dt in ("bfloat16", "float16", "float32")),
     *(_case(f"d33_padded_{dt}", 1, 512, 512, 32, 8, 33, dt, view="padded")
       for dt in ("bfloat16", "float16")),
     # LlamaConfig.tiny()'s prefill in the tiny phase (12 tokens, 8 heads
@@ -388,7 +417,7 @@ CASES = [
       for dt in ("float32", "bfloat16", "float16")),
 ]
 #: the K1 kernel each dtype takes at every head dim
-K1_BY_DTYPE = {"float32": "simt_f32", "bfloat16": "wgmma_bf16",
+K1_BY_DTYPE = {"float32": "tf32x3_f32", "bfloat16": "wgmma_bf16",
                "float16": "wgmma_f16"}
 #: the S=512 cases the redesign of bf16/f16 at other head dims aims at
 #: (device time at most HEAD_DIM_TARGET times SDPA's), reported
@@ -396,8 +425,14 @@ HEAD_DIM_CASES = [f"{c}_{dt}" for c in ("d80", "d96", "openllama_s512",
                                         "d256")
                   for dt in ("bfloat16", "float16")]
 HEAD_DIM_TARGET = 2.0
+#: the f32 cases the 3xTF32 kernel aims at (device time at most SDPA's,
+#: F32_TARGET), reported
+F32_CASES = ("d8_float32", "d32_float32", "d80_float32", "d96_float32",
+             "openllama_s512_float32", "f32_d128_s512", "d256_float32",
+             "openllama_s2048_float32", "f32_d128_s2048")
+F32_TARGET = 1.0
 #: device-time attribution: K1's own kernels, and everything else
-K1_KERNELS = ("flash_fwd_wgmma", "flash_fwd_kernel")
+K1_KERNELS = ("flash_fwd_wgmma", "flash_fwd_tf32x3")
 
 
 def _window(x):
@@ -546,6 +581,14 @@ def _kernel_case(c) -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
+def _over_sdpa(rows: dict[str, dict], names) -> dict[str, float | None]:
+    """Each case's K1 device time over SDPA's, both from the profiler in
+    this run, else None (not measured)."""
+    return {n: (rows[n]["device_ms"] / rows[n]["library_device_ms"]
+                if rows[n]["device_ms_by"] == rows[n]["library_device_ms_by"]
+                == "profiler" else None) for n in names}
+
+
 def phase_kernel() -> dict[str, dict]:
     """Every case; returns the rows by case name."""
     rows = {c["name"]: _kernel_case(c) for c in CASES}
@@ -570,10 +613,8 @@ def phase_kernel() -> dict[str, dict]:
                             / rows[f"prefill_s{n}"]["library_ms"]
                             for n in (17, 64, 96, 128, 512, 2048)})
     # bf16/f16 at head dims other than 64 and 128 (S=512): device time
-    # over SDPA's in this run, both from the profiler, else not measured
-    ratio = {n: (rows[n]["device_ms"] / rows[n]["library_device_ms"]
-                 if rows[n]["device_ms_by"] == rows[n]["library_device_ms_by"]
-                 == "profiler" else None) for n in HEAD_DIM_CASES}
+    # over SDPA's in this run
+    ratio = _over_sdpa(rows, HEAD_DIM_CASES)
     _say("head_dim_floors", target_over_sdpa_device=HEAD_DIM_TARGET,
          over_sdpa_device=ratio,
          met={n: r is not None and r <= HEAD_DIM_TARGET
@@ -582,7 +623,86 @@ def phase_kernel() -> dict[str, dict]:
          library_device_ms={n: rows[n]["library_device_ms"]
                             for n in HEAD_DIM_CASES},
          bound_ms={n: rows[n]["bound_ms"] for n in HEAD_DIM_CASES})
+    # f32 on the 3xTF32 kernel: device time over SDPA's
+    f32 = _over_sdpa(rows, F32_CASES)
+    _say("f32_floors", target_over_sdpa_device=F32_TARGET,
+         over_sdpa_device=f32,
+         met={n: r is not None and r <= F32_TARGET for n, r in f32.items()},
+         device_ms={n: rows[n]["device_ms"] for n in F32_CASES},
+         library_device_ms={n: rows[n]["library_device_ms"]
+                            for n in F32_CASES},
+         library_kernels={n: rows[n]["library_kernels"] for n in F32_CASES},
+         bound_ms={n: rows[n]["bound_ms"] for n in F32_CASES},
+         max_abs_err={n: rows[n]["max_abs_err"] for n in F32_CASES})
     return rows
+
+
+def phase_grads() -> None:
+    """Grads through K1 on the card: bf16 and f32, with and without the
+    LSE, a loss linear in the outputs. q, k and v are CUDA tensors that
+    require grad; the forward is one launch of the planned kernel (and
+    under ``inference_mode`` one launch and no graph), the backward the
+    JAX package's rule (a recompute of ``reference_attention_lse``).
+    dq, dk and dv must be there, finite, and within the dtype's limit of
+    autograd through ``reference_attention_lse`` on the same tensors."""
+    import torch
+
+    from demodel_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for lse in (False, True):
+            gen = torch.Generator("cuda").manual_seed(21)
+            B, S, H, G, D = 2, 256, 8, 2, 128
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device="cuda")
+
+            base = [rnd(B, S, H, D), rnd(B, S, G, D), rnd(B, S, G, D)]
+            w, w_lse = rnd(B, S, H, D), rnd(B, S, H)
+            kernel = K1_BY_DTYPE[dtype]
+            grads = {}
+            for path in ("k1", "reference"):
+                qkv = [t.detach().to(dt, copy=True).requires_grad_()
+                       for t in base]
+                before = fa.launches_by_kernel[kernel]
+                if path == "k1":
+                    res = fa.flash_attention(*qkv, causal=True,
+                                             return_lse=lse)
+                    launched = fa.launches_by_kernel[kernel] - before
+                    if launched != 1:
+                        raise AssertionError(f"grads {dtype}: {launched} "
+                                             f"launches of {kernel}")
+                else:
+                    res = fa.reference_attention_lse(*qkv, causal=True)
+                    res = res if lse else res[0]
+                out, l_ = res if lse else (res, None)
+                loss = (out.float() * w).sum()
+                if lse:
+                    loss = loss + (l_ * w_lse).sum()
+                loss.backward()
+                grads[path] = [t.grad for t in qkv]
+            torch.cuda.synchronize()
+            if any(g is None or not torch.isfinite(g.float()).all()
+                   for g in grads["k1"]):
+                raise AssertionError(f"grads {dtype} lse={lse}: missing or "
+                                     "not finite")
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(grads["k1"], grads["reference"]))
+            before = fa.launches_by_kernel[kernel]
+            with torch.inference_mode():
+                out = fa.flash_attention(*(t.to(dt) for t in base))
+            launched = fa.launches_by_kernel[kernel] - before
+            if err > TOL[dtype] or launched != 1 or out.requires_grad:
+                raise AssertionError(f"grads {dtype} lse={lse}: max abs err "
+                                     f"{err} (tol {TOL[dtype]}), inference "
+                                     f"launches {launched}")
+            rows.append({"dtype": dtype, "return_lse": lse,
+                         "shape": [B, S, S, H, G, D], "kernel": kernel,
+                         "max_abs_err": err, "tol": TOL[dtype],
+                         "inference_launches": launched})
+    _say("grads", cases=rows)
 
 
 # --------------------------------------------------------------- phase 4
@@ -1812,7 +1932,7 @@ def phase_peer(rig: _HubRig, pulled: dict) -> int:
 
 def phase_tiny() -> dict[str, int]:
     """``LlamaConfig.tiny()`` (head dim 8) on the card in f32, bf16 and
-    f16. By default it is served through K1 (f32 on the CUDA-core
+    f16. By default it is served through K1 (f32 on the 3xTF32
     kernel, bf16 and f16 on the tensor-core kernel at padded head dim
     64), engine tokens equal to ``generate``; with the caller's explicit
     ``DEMODEL_FLASH_ATTN=0`` on the einsum path, no K1 launch. Returns
@@ -1874,16 +1994,27 @@ OPENLLAMA_3B = {"model_type": "llama", "hidden_size": 3200,
                 "vocab_size": 32000, "torch_dtype": "float16"}
 OPENLLAMA_PROMPTS = (17, 128, 512, 2048)   # logits held against plain
 OPENLLAMA_SERVED = (17, 128, 512)          # served over HTTP
+OPENLLAMA_SHARE = (512, 2048)              # K1's share of device time
+#: the f32 leg's prefill logits, kernel path vs plain path (both f32),
+#: relative L2: K1's f32 output is within F32_TOL (1e-4) of its plain
+#: version on O(1) values, the plain path's einsum attention differs from
+#: that by summation order only, and 26 layers of seeded weights with RMS
+#: norms between them do not grow a relative error tenfold; tighter than
+#: the f16 leg's LOGITS_REL_TOL, not loosened from it
+F32_LOGITS_REL_TOL = 1e-3
+LOGITS_TOL = {"float16": LOGITS_REL_TOL, "float32": F32_LOGITS_REL_TOL}
 
 
-def phase_openllama() -> int:
-    """OpenLLaMA-3B's widths at full depth (26 layers, f16, seeded random
-    weights, about 6.9 GB) on the card: prefill logits of the kernel path
+def phase_openllama(dtype: str, seed: int) -> int:
+    """OpenLLaMA-3B's widths at full depth (26 layers, seeded random
+    weights: 6.85 GB in f16, 13.7 GB in f32, the stored dtype a pulled
+    checkpoint is built in) on the card: prefill logits of the kernel path
     against the plain path at 17, 128, 512 and 2048 tokens, K1's share of
-    the 512-token prefill's device time, then ``serve.boot`` and three
-    prompts over HTTP ``/generate``, first tokens the argmax of their
-    kernel-path logits. Returns the engine's K1 launches, all on
-    ``wgmma_f16`` (26 per prompt)."""
+    the 512- and 2048-token prefills' device time, then ``serve.boot`` and
+    three prompts over HTTP ``/generate``, first tokens the argmax of
+    their kernel-path logits. Returns the engine's K1 launches, all on the
+    dtype's kernel (26 per prompt); the weights are freed before it
+    returns."""
     import dataclasses
 
     import numpy as np
@@ -1895,12 +2026,13 @@ def phase_openllama() -> int:
     from demodel_tpu_torch.serve import http
 
     cfg = dataclasses.replace(llama.LlamaConfig.from_hf(OPENLLAMA_3B),
-                              dtype=OPENLLAMA_3B["torch_dtype"])
+                              dtype=dtype)
+    kernel, tol = K1_BY_DTYPE[dtype], LOGITS_TOL[dtype]
     if cfg.head_dim != 100:
         raise AssertionError(f"openllama: head dim {cfg.head_dim}")
     t0 = time.perf_counter()
-    params = llama.init_params(torch.Generator("cuda").manual_seed(11), cfg,
-                               "cuda")
+    params = llama.init_params(torch.Generator("cuda").manual_seed(seed),
+                               cfg, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_bytes = sum(t.numel() * t.element_size() for t in (
@@ -1910,7 +2042,7 @@ def phase_openllama() -> int:
     prompts = {n: _prompt(pgen, n, cfg.vocab_size) for n in OPENLLAMA_PROMPTS}
 
     # prefill logits, kernel path vs plain path (comparison only)
-    rel_errs, first = {}, {}
+    rel_errs, first, share = {}, {}, {}
     with torch.inference_mode():
         for n, p in prompts.items():
             toks = torch.tensor([p], device="cuda")
@@ -1923,23 +2055,25 @@ def phase_openllama() -> int:
             rel_errs[n] = ((got - ref).norm() / ref.norm()).item()
             first[n] = int(torch.argmax(got).item())
             if not torch.isfinite(got).all():
-                raise AssertionError(f"openllama: {n}-token logits not "
-                                     "finite")
-        if max(rel_errs.values()) > LOGITS_REL_TOL or not all(
+                raise AssertionError(f"openllama {dtype}: {n}-token logits "
+                                     "not finite")
+            del got, ref
+        if max(rel_errs.values()) > tol or not all(
                 map(np.isfinite, rel_errs.values())):
-            raise AssertionError(f"openllama: prefill logits kernel vs "
-                                 f"plain rel errors {rel_errs} > "
-                                 f"{LOGITS_REL_TOL}")
-        # K1's share of one 512-token prefill's device time (26 launches)
-        toks = torch.tensor([prompts[512]], device="cuda")
-        got = _device_ms(
-            lambda: llama.step_prefill(params, toks, cfg),
-            {"k1": lambda n: "flash_fwd_wgmma" in n, "all": lambda n: True},
-            counts_ok={"k1": lambda c: sum(c.values())
-                       == cfg.num_hidden_layers})
-    share = None if got is None else {
-        "k1_device_ms": got[0]["k1"], "device_ms": got[0]["all"],
-        "k1_share": got[0]["k1"] / got[0]["all"]}
+            raise AssertionError(f"openllama {dtype}: prefill logits kernel "
+                                 f"vs plain rel errors {rel_errs} > {tol}")
+        # K1's share of a prefill's device time (26 launches)
+        for n in OPENLLAMA_SHARE:
+            toks = torch.tensor([prompts[n]], device="cuda")
+            got = _device_ms(
+                lambda: llama.step_prefill(params, toks, cfg),
+                {"k1": lambda k: any(s in k for s in K1_KERNELS),
+                 "all": lambda k: True},
+                counts_ok={"k1": lambda c: sum(c.values())
+                           == cfg.num_hidden_layers})
+            share[n] = None if got is None else {
+                "k1_device_ms": got[0]["k1"], "device_ms": got[0]["all"],
+                "k1_share": got[0]["k1"] / got[0]["all"]}
 
     _reset_k1()  # count the main path's launches only
     engine = serve.boot(params, cfg, device="cuda", kv_mb=1024,
@@ -1959,18 +2093,19 @@ def phase_openllama() -> int:
     by_kernel = dict(fa.launches_by_kernel)
     launches = fa.launches
     want = cfg.num_hidden_layers * len(OPENLLAMA_SERVED)
-    if launches != want or by_kernel["wgmma_f16"] != want:
-        raise AssertionError(f"openllama: K1 launches {by_kernel}, expected "
-                             f"{want} on wgmma_f16")
+    if launches != want or by_kernel[kernel] != want:
+        raise AssertionError(f"openllama {dtype}: K1 launches {by_kernel}, "
+                             f"expected {want} on {kernel}")
     for n, toks in tokens.items():
         if len(toks) != PULL_NEW or toks[0] != first[n]:
-            raise AssertionError(f"openllama: prompt {n}: tokens {toks}, "
-                                 f"kernel-path prefill argmax {first[n]}")
+            raise AssertionError(f"openllama {dtype}: prompt {n}: tokens "
+                                 f"{toks}, kernel-path prefill argmax "
+                                 f"{first[n]}")
     _say("openllama", model=f"OpenLLaMA-3B widths, {cfg.num_hidden_layers} "
-         "layers, f16, seeded",
+         f"layers, {dtype}, seeded",
          head_dim=cfg.head_dim, weight_bytes=weight_bytes,
          init_s=round(init_s, 3), logits_rel_err=rel_errs,
-         logits_tol=LOGITS_REL_TOL, prefill_512=share,
+         logits_tol=tol, prefill_device=share,
          prompt_lens=list(OPENLLAMA_SERVED), tokens=tokens,
          serve_prefill_s=prefill_s, k1_launches=launches,
          k1_launches_by_kernel=by_kernel)
@@ -2005,11 +2140,11 @@ def _dequant_entries(rows: dict[str, dict], launches: dict[str, int]
 
 def _flash_entries(rows: dict[str, dict], launches: dict[str, int]
                    ) -> list[dict]:
-    """The kernels-line entries of K1: the bf16 and f16 tensor-core
-    kernel at the 7B prefill (S=512) with its rows at head dims 8, 80,
-    96, 100 (OpenLLaMA-3B) and 256 beside, and the f32 CUDA-core kernel
-    at the tiny phase's shape with its rows at head dims 80 and 256
-    (S=512) beside."""
+    """The kernels-line entries of K1: the bf16 and f16 ``wgmma`` kernel
+    at the 7B prefill (S=512) with its rows at head dims 8, 80, 96, 100
+    (OpenLLaMA-3B) and 256 beside, and the f32 3xTF32 kernel at
+    OpenLLaMA-3B's prefill (D=100, S=512; the openllama f32 leg's shape)
+    with its rows at head dims 8, 80, 100, 128 and 256 (S=512) beside."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "device_ms_by", "library_device_ms",
             "library_device_ms_by", "shape", "dtype")
@@ -2029,10 +2164,11 @@ def _flash_entries(rows: dict[str, dict], launches: dict[str, int]
             f"d8_{dtype}", f"d80_{dtype}", f"d96_{dtype}",
             f"openllama_s512_{dtype}", f"d256_{dtype}")]
         out.append(e)
-    e = entry("flash_attention_simt_f32", rows["tiny_prefill_float32"],
-              launches["simt_f32"])
-    e["head_dims"] = [{k: rows[f"d{D}_float32"][k] for k in keys}
-                      for D in (80, 256)]
+    e = entry("flash_attention_tf32x3_f32", rows["openllama_s512_float32"],
+              launches["tf32x3_f32"])
+    e["head_dims"] = [{k: rows[n][k] for k in keys} for n in (
+        "d8_float32", "d80_float32", "openllama_s512_float32",
+        "f32_d128_s512", "d256_float32")]
     out.append(e)
     return out
 
@@ -2050,6 +2186,7 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     rows = phase_kernel()
+    phase_grads()
     dq_rows = phase_dequant()
     k1 = {"wgmma_bf16": phase_slice()}
     phase_parity()
@@ -2067,7 +2204,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     for kernel, n in phase_tiny().items():
         k1[kernel] = k1.get(kernel, 0) + n
-    k1["wgmma_f16"] += phase_openllama()
+    k1["wgmma_f16"] += phase_openllama("float16", seed=11)
+    k1["tf32x3_f32"] += phase_openllama("float32", seed=13)
     _say("done", total_s=round(time.perf_counter() - t0, 3))
     print(smi, flush=True)
     print(json.dumps({"kernels": [*_flash_entries(rows, k1),

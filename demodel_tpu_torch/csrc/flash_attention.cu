@@ -1,10 +1,10 @@
 // Fused flash-attention forward for NVIDIA Hopper (sm_90a): two kernels,
-// chosen by the input dtype. bf16 and f16 go to the tensor-core kernel at
-// every head dim up to 256; float32 goes to the CUDA-core kernel at every
-// head dim up to 256. A head dim past 256, float64 or any other dtype has
-// no kernel: the wrapper raises before a launch, and the entry point
-// returns cudaErrorInvalidValue for a kernel code or head dim it does not
-// know.
+// chosen by the input dtype, both on the tensor cores at every head dim up
+// to 256. bf16 and f16 go to the `wgmma` kernel; float32 goes to the
+// `mma.sync` kernel that splits every operand into two TF32 values (3xTF32).
+// A head dim past 256, float64 or any other dtype has no kernel: the
+// wrapper raises before a launch, and the entry point returns
+// cudaErrorInvalidValue for a kernel code or head dim it does not know.
 //
 // Replaces the Pallas TPU kernel demodel_tpu/ops/flash_attention.py
 // `_flash_kernel` (launched by `_flash_forward`, public entry
@@ -73,19 +73,43 @@
 // P and the output; a pulled Llama-2 or OpenLLaMA checkpoint is stored in
 // f16 and reaches K1 so.
 //
-// float32: `flash_fwd_kernel<DP>`, on the CUDA cores, because the JAX
-// kernel computes in fp32 and the f32 tolerances (1e-4) rule out bf16 or
-// TF32 tensor cores. DP is the head dim padded up to 32, 64, 128 or 256 and
-// the true D (<= DP) a runtime argument: columns past D load as zeros and
-// are never stored. One block of 8 warps per (q-tile of 32 rows, head,
-// batch row); each warp owns 4 query rows. For every 32-key tile, lane j
-// scores key j against the warp's 4 rows (q rows read as broadcast float4,
-// key rows padded to DP+1 floats so the 32 lanes hit 32 banks), the running
-// max / denominator update with warp shuffles, and then each lane
-// accumulates output columns lane, lane+32, ... of P.V in fp32 registers.
-// The tiles take 98,432 bytes of shared memory at DP=256, above the 48 KB
-// default, so the launch raises the block's dynamic shared memory limit.
-// This kernel is bound by its FMA issue rate.
+// float32: `flash_fwd_tf32x3<DP>`, on the tensor cores. The JAX kernel
+// computes in fp32 and the f32 limits (2e-5 against the reference, 1e-4 on
+// the card) rule out one TF32 product (10 mantissa bits), but not three:
+// each operand x is split in registers into x_hi (x with its 13 low
+// mantissa bits cleared, a TF32 value) and x_lo = x - x_hi (exact), and
+// a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, summed in fp32; the tensor core
+// reads the top 19 bits of x_lo, and a_lo.b_lo is dropped, so a product is
+// off by at most about 2^-19 relative (the card reads 2e-6 to 9e-6 against
+// the plain version). Both products run on
+// `mma.sync.m16n8k8.f32.tf32.tf32.f32`. What bounds it is operations: at
+// S=512, H=32, G=8, D=256, causal, 4.3 GFLOP over 42 MB, i.e. 26 us of
+// exact-f32 work at 495 / 3 TFLOP/s against 12.5 us of HBM time, where the
+// CUDA cores' 67 TFLOP/s would need 64 us (a CUDA-core kernel with one key
+// a lane reached 10.7 TFLOP/s there, bound by shared-memory loads). So the
+// design spends ALU work (two operations an element for the split) to
+// keep shared memory at one copy of each tile, and makes every fragment
+// load a vector load (see the kernel). One block of 4 warps per (64 query
+// rows, head, batch row), each warp 16 rows; 32-key K and V tiles stream
+// through a 2-stage `cp.async` ring, as does the Q tile once (scaled by
+// scale * log2 e in place): 16-byte copies where the base and strides
+// allow, else 4-byte ones, so any stride with a unit last one is read in
+// place (OpenLLaMA-3B's 400-byte f32 heads, strided views, D=99). Why
+// `mma.sync` and not `wgmma`: `wgmma` reads tf32 operands K-major from
+// shared memory, so the split would need hi and lo copies of every tile
+// there (and V transposed), and at D=256 one 64 x 256 f32 tile alone is
+// 64 KB; `mma.sync` takes its operands from registers, and a synchronous
+// product needs no fence. P stays in registers between the two products
+// (the P.V step's keys are permuted to match the accumulator's layout, and
+// V's rows read in that order) and is split too. The softmax follows the
+// bf16/f16 kernel's rules: `k_end` cut at the block's last causal row,
+// masked scores weigh exactly 0 (l == 0 marks a row with no key), LSE
+// m + log l. DP is the head dim rounded up to a multiple of 16, one
+// instantiation each from 16 to 256, so the products' loops hold no
+// run-time guard on D (a body at DP 32/64/128/256 with the guards took 19%
+// longer on the card at D=128 and at D=256, DP the same); the block takes
+// 205,824 bytes of shared memory at DP=256 (one block an SM) and 128 fp32
+// accumulator registers a thread for O there (243 registers, no spill).
 //
 // Both kernels keep HBM traffic at O(S*D) per head (the S*S scores never
 // leave the SM), read (B, S, H, D) tensors through their strides, and take
@@ -112,7 +136,7 @@ struct LaunchArgs {
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   long long causal;
-  long long kernel;  // 0: f32 CUDA cores; 1, 2: bf16, f16 tensor cores
+  long long kernel;  // 0: f32 (3xTF32); 1, 2: bf16, f16; all tensor cores
   long long maps;    // tensor cores: bit 0, 1, 2 set when q, k, v are read
                      // through the row map (else the 4-D map)
   long long grid_x, threads, smem;
@@ -123,185 +147,6 @@ struct LaunchArgs {
 namespace {
 
 constexpr float kNegInf = -1e30f;  // mask value and LSE sentinel
-
-// ---------------------------------------------------------------- float32
-
-constexpr int kBlockQ = 32;                      // query rows per block
-constexpr int kBlockK = 32;                      // keys per tile (= lanes)
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = kBlockQ / kWarps;   // 4
-
-struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
-  float* lse;        // [B, Sq, H] or nullptr
-  const int* win;    // [2, B]: kv_len per batch row, then causal_offset;
-                     // nullptr: kv_len / causal_offset below for every row
-  int kv_len, causal_offset;
-  int B, Sq, Sk, H, G;
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  float scale;
-  int causal;
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int DP>
-constexpr int smem_floats() {
-  return kBlockQ * DP + kBlockK * (DP + 1) + kBlockK * DP;
-}
-
-// DP is the head dim padded up to a multiple of 32 (32, 64, 128 or 256) and
-// `D` <= DP the true one. Columns D..DP-1 are zeros in shared memory, so
-// they add nothing to the scores and produce columns that are never stored.
-template <int DP>
-__global__ void __launch_bounds__(kWarps * 32)
-    flash_fwd_kernel(const Params p, const int D) {
-  static_assert(DP % 32 == 0, "padded head dim must be a multiple of 32");
-  constexpr int kCols = DP / 32;  // output columns per lane
-  extern __shared__ __align__(16) float smem[];
-  float* sq = smem;                     // [kBlockQ][DP]   q * scale
-  float* sk = sq + kBlockQ * DP;        // [kBlockK][DP+1] keys
-  float* sv = sk + kBlockK * (DP + 1);  // [kBlockK][DP]   values
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int g = h / (p.H / p.G);  // GQA: the kv head this q head reads
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int kv_len = p.win != nullptr ? p.win[b] : p.kv_len;
-  const int offset = p.win != nullptr ? p.win[p.B + b] : p.causal_offset;
-
-  const float* q = p.q + b * p.q_sb + h * p.q_sh;
-  const float* k = p.k + b * p.k_sb + g * p.k_sh;
-  const float* v = p.v + b * p.v_sb + g * p.v_sh;
-
-  for (int i = tid; i < kBlockQ * DP; i += kWarps * 32) {
-    const int r = i / DP;
-    const int d = i - r * DP;
-    const int qi = q0 + r;
-    sq[i] = qi < p.Sq && d < D ? q[qi * p.q_ss + d] * p.scale : 0.f;
-  }
-
-  // keys any row of this block can see: the valid prefix, cut at the
-  // causal diagonal of the block's last real row (tiles past it skipped)
-  int k_end = min(kv_len, p.Sk);
-  if (p.causal) k_end = min(k_end, min(q0 + kBlockQ, p.Sq) + offset);
-
-  float m[kRowsPerWarp];
-  float l[kRowsPerWarp];
-  float acc[kRowsPerWarp][kCols];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m[rr] = kNegInf;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[rr][c] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < k_end; t0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed (and sq is written)
-    for (int i = tid; i < kBlockK * DP; i += kWarps * 32) {
-      const int j = i / DP;
-      const int d = i - j * DP;
-      const int kj = t0 + j;
-      const bool in = kj < p.Sk && d < D;
-      sk[j * (DP + 1) + d] = in ? k[kj * p.k_ss + d] : 0.f;
-      sv[j * DP + d] = in ? v[kj * p.v_ss + d] : 0.f;
-    }
-    __syncthreads();
-
-    // scores of this lane's key against the warp's rows
-    float s[kRowsPerWarp];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) s[rr] = 0.f;
-    const float* krow = sk + lane * (DP + 1);
-    const float* qrow = sq + warp * kRowsPerWarp * DP;
-#pragma unroll 4
-    for (int d = 0; d < DP; d += 4) {
-      const float k0 = krow[d];
-      const float k1 = krow[d + 1];
-      const float k2 = krow[d + 2];
-      const float k3 = krow[d + 3];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float4 qv = *reinterpret_cast<const float4*>(qrow + rr * DP + d);
-        s[rr] = fmaf(qv.x, k0, s[rr]);
-        s[rr] = fmaf(qv.y, k1, s[rr]);
-        s[rr] = fmaf(qv.z, k2, s[rr]);
-        s[rr] = fmaf(qv.w, k3, s[rr]);
-      }
-    }
-
-    // online softmax; masked entries score NEG_INF and weigh exactly 0, so
-    // a row with no visible key keeps l == 0
-    const int kj = t0 + lane;
-    float pr[kRowsPerWarp];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int qi = q0 + warp * kRowsPerWarp + rr;
-      const bool valid = kj < k_end && (!p.causal || kj <= qi + offset);
-      const float sc = valid ? s[rr] : kNegInf;
-      const float m_new = fmaxf(m[rr], warp_max(sc));
-      const float alpha = expf(m[rr] - m_new);
-      const float e = valid ? expf(sc - m_new) : 0.f;
-      l[rr] = l[rr] * alpha + warp_sum(e);
-      pr[rr] = e;
-      m[rr] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[rr][c] *= alpha;
-    }
-
-    // acc += P . V: lane owns output columns lane + 32 c
-#pragma unroll 4
-    for (int j = 0; j < kBlockK; ++j) {
-      float pj[kRowsPerWarp];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr)
-        pj[rr] = __shfl_sync(0xffffffffu, pr[rr], j);
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float vv = sv[j * DP + c * 32 + lane];
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerWarp; ++rr)
-          acc[rr][c] = fmaf(pj[rr], vv, acc[rr][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int qi = q0 + warp * kRowsPerWarp + rr;
-    if (qi >= p.Sq) continue;
-    const float safe = l[rr] == 0.f ? 1.f : l[rr];
-    const float inv = 1.f / safe;
-    float* orow = p.o + b * p.o_sb + qi * p.o_ss + h * p.o_sh;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      if (c * 32 + lane < D) orow[c * 32 + lane] = acc[rr][c] * inv;
-    if (p.lse != nullptr && lane == 0)
-      p.lse[(static_cast<long long>(b) * p.Sq + qi) * p.H + h] =
-          l[rr] > 0.f ? m[rr] + logf(l[rr]) : kNegInf;
-  }
-}
 
 // ---------------------------------------------------- bf16 and f16, wgmma
 
@@ -892,6 +737,409 @@ __global__ void __launch_bounds__(kTcThreads, DP == 256 ? 1 : 2)
   }
 }
 
+// ---------------------------------------------------------- float32, 3xTF32
+
+constexpr int kF32Rows = 64;      // query rows per block: 16 per warp
+constexpr int kF32Keys = 32;      // keys per K/V tile
+constexpr int kF32Stages = 2;     // K/V ring depth
+constexpr int kF32Threads = 128;  // 4 warps
+constexpr int kF32PadQK = 16;     // floats past DP in a Q or K row
+constexpr int kF32PadV = 4;       // floats past DP in a V row
+
+// Floats between Q or K rows: 16 banks mod 32 (DP is a multiple of 16)
+template <int DP>
+__host__ __device__ constexpr int f32_ld_qk() {
+  return DP % 32 == 0 ? DP + kF32PadQK : DP;
+}
+
+// The Q tile and the K and V rings: 205,824 bytes at DP=256 (one block an
+// SM), 107,520 at 128 and 96,768 at 112 (two)
+template <int DP>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return 4 * (f32_ld_qk<DP>() * (kF32Rows + kF32Stages * kF32Keys) +
+              (DP + kF32PadV) * kF32Stages * kF32Keys);
+}
+
+struct F32Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  float* lse;       // [B, Sq, H] or nullptr
+  const int* win;   // [2, B]: kv_len per batch row, then causal_offset;
+                    // nullptr: kv_len / causal_offset below for every row
+  int kv_len, causal_offset;
+  int B, Sq, Sk, H, G, D;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
+  float scale_log2;  // softmax scale * log2(e), folded into Q
+  int causal;
+  // 16-byte copies (q, k, v) and stores (o): base and strides allow them
+  int q_vec, k_vec, v_vec, o_vec;
+};
+
+// x = hi + lo exactly: hi is x with its 13 low mantissa bits cleared (a
+// TF32 value), lo = x - hi (exact in fp32, |lo| < 2^-10 |x|); the tensor
+// core reads lo's top 19 bits, so lo loses at most 2^-10 of itself. Two
+// ALU operations an element.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d[16x8] += a[16x8] . b[8x8] on the tensor cores, TF32 in, fp32 sum
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a.b to about fp32 accuracy (2^-19 relative a product at worst):
+// the big x small terms, then big x big; small x small is dropped
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows row0..row0 + kRows - 1 of one (batch row, head) of q, k or v into a
+// shared tile of rows `ld` floats apart, columns 0..DP-1 (what the products
+// read). The copy itself zero fills columns past D and rows past `rows`
+// (src-size 0 reads nothing): 16 bytes at a time where `vec` (a 16-byte
+// aligned base and strides a multiple of 4 elements), else 4. Thread i
+// takes rows i / 4 (+ 32, ...) and every fourth 4-column chunk.
+template <int kRows, int DP>
+__device__ __forceinline__ void f32_load_tile(uint32_t dst, int ld,
+                                              const float* src,
+                                              long long s_row, int row0,
+                                              int rows, int D, bool vec) {
+  static_assert(kRows % (kF32Threads / 4) == 0, "rows per thread");
+  const int c0 = 4 * (threadIdx.x & 3);
+#pragma unroll
+  for (int rr = 0; rr < kRows / (kF32Threads / 4); ++rr) {
+    const int r = (threadIdx.x >> 2) + rr * (kF32Threads / 4);
+    const int row = row0 + r;
+    const float* g = src + row * s_row;
+    const uint32_t d = dst + 4 * r * ld;
+#pragma unroll
+    for (int c = c0; c < DP; c += 16) {
+      if (vec) {
+        const int n = row < rows ? min(max(D - c, 0), 4) : 0;
+        cp_async16(d + 4 * c, n > 0 ? g + c : src, 4 * n);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = row < rows && c + e < D;
+          cp_async4(d + 4 * (c + e), in ? g + c + e : src, in ? 4 : 0);
+        }
+      }
+    }
+  }
+}
+
+// Fragment layouts of mma.m16n8k8 (TF32), lane = 4 g + t: A holds (row g,
+// k t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (k t, n g), (t + 4, g);
+// the accumulator (g, n 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+// The order of k within a product and of n within O's columns is free, so
+// both are permuted to make every fragment load a vector load:
+// - Q.K^T takes 16 head-dim columns in two steps, step s giving k t to
+//   column 4t + 2s and k t + 4 to 4t + 2s + 1: one 16-byte load of Q's rows
+//   g and g + 8 and of K's row g serves both steps;
+// - P.V's step of 8 keys gives k t to key 2t and t + 4 to key 2t + 1, which
+//   is what the S accumulator holds (P never leaves registers); its two
+//   n-blocks of a 16-column group give lane g the columns 2g (block 0) and
+//   2g + 1 (block 1): one 8-byte load of V's rows 2t and 2t + 1 serves
+//   both, and thread t ends up holding 4 adjacent output columns,
+//   16q + 4t .. 16q + 4t + 3, stored as one 16-byte store.
+// Shared rows are DP + 16 floats apart for Q and K (a 16-byte load's
+// quarter-warp reads two rows 16 banks apart) and DP + 4 for V (an 8-byte
+// load's half-warp reads rows 2t, 8 banks apart): no bank conflicts.
+//
+// DP is the head dim rounded up to a multiple of 16 (16 instantiations,
+// 16..256) and p.D <= DP the true one: columns D..DP-1 are zeros in shared
+// memory and columns < D are stored. The products' loops run over DP, a
+// constant, so no run-time guard on D sits among them.
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads)
+    flash_fwd_tf32x3(const F32Params p) {
+  static_assert(DP % 16 == 0 && DP <= 256, "padded head dim");
+  constexpr int kLqk = f32_ld_qk<DP>();
+  constexpr int kLv = DP + kF32PadV;
+  constexpr int kTileK = kF32Keys * kLqk;
+  constexpr int kTileV = kF32Keys * kLv;
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;                          // [kF32Rows][kLqk] q * scale
+  float* sk = sq + kF32Rows * kLqk;          // kF32Stages K tiles
+  float* sv = sk + kF32Stages * kTileK;      // kF32Stages V tiles
+  const uint32_t sq_u = smem_u32(sq);
+  const uint32_t sk_u = smem_u32(sk);
+  const uint32_t sv_u = smem_u32(sv);
+
+  // (q tile, head, batch row) from the linear block index, the q tile the
+  // slowest and in descending order: the longest causal tiles start first
+  const int hb = p.H * p.B;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int qt = gridDim.x - 1 - lin / hb;
+  const int h = (lin % hb) % p.H;
+  const int b = (lin % hb) / p.H;
+  const int q0 = qt * kF32Rows;
+  const int g = h / (p.H / p.G);  // GQA: the kv head this q head reads
+  const int kv_len = p.win != nullptr ? p.win[b] : p.kv_len;
+  const int offset = p.win != nullptr ? p.win[p.B + b] : p.causal_offset;
+  const int D = p.D;
+
+  // keys any row of this block can see: the valid prefix, cut at the
+  // causal diagonal of the block's last real row (tiles past it skipped);
+  // keys past k_end load as zeros
+  const int k_lim = min(kv_len, p.Sk);
+  int k_end = k_lim;
+  if (p.causal) k_end = min(k_end, min(q0 + kF32Rows, p.Sq) + offset);
+  const int n_tiles = k_end > 0 ? (k_end + kF32Keys - 1) / kF32Keys : 0;
+
+  const float* kg = p.k + b * p.k_sb + g * p.k_sh;
+  const float* vg = p.v + b * p.v_sb + g * p.v_sh;
+  if (n_tiles > 0) {
+    f32_load_tile<kF32Rows, DP>(sq_u, kLqk, p.q + b * p.q_sb + h * p.q_sh,
+                                p.q_ss, q0, p.Sq, D, p.q_vec);
+    f32_load_tile<kF32Keys, DP>(sk_u, kLqk, kg, p.k_ss, 0, k_end, D,
+                                p.k_vec);
+    f32_load_tile<kF32Keys, DP>(sv_u, kLv, vg, p.v_ss, 0, k_end, D,
+                                p.v_vec);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;                 // fragment row group
+  const int tc = lane & 3;                  // fragment column
+  const int r0 = warp * 16 + gr;            // block rows r0 and r0 + 8
+
+  float o[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's share of the sum
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t & 1;
+    const int t0 = t * kF32Keys;
+    // the next tile streams into the other stage while this one is used
+    if (t + 1 < n_tiles) {
+      f32_load_tile<kF32Keys, DP>(sk_u + 4 * (s ^ 1) * kTileK, kLqk, kg,
+                                  p.k_ss, t0 + kF32Keys, k_end, D, p.k_vec);
+      f32_load_tile<kF32Keys, DP>(sv_u + 4 * (s ^ 1) * kTileV, kLv, vg,
+                                  p.v_ss, t0 + kF32Keys, k_end, D, p.v_vec);
+    }
+    cp_async_commit();
+    cp_async_wait1();  // this tile's copies have landed (this thread's)
+    __syncthreads();   // ... and every thread's
+    if (t == 0) {
+      // Q scaled in place once (scale * log2 e: the softmax runs in base 2)
+      for (int i = threadIdx.x; i < kF32Rows * DP; i += kF32Threads) {
+        float* x = sq + (i / DP) * kLqk + i % DP;
+        *x *= p.scale_log2;
+      }
+      __syncthreads();
+    }
+
+    // S = Q.K^T, 16 rows x 32 keys a warp (4 blocks of 8 keys), 16 columns
+    // an iteration: big x big into `sb`, the two big x small terms into
+    // `ss` (two accumulators: twice the independent chains)
+    float sb[4][4], ss[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sb[j][i] = ss[j][i] = 0.f;
+    const float* qa = sq + r0 * kLqk + 4 * tc;
+    const float* kb = sk + s * kTileK + gr * kLqk + 4 * tc;
+    // unrolled whole up to DP=128 (8-10% faster at 128 on the card), in
+    // pairs above it (whole was 5% slower at 256)
+    constexpr int kUnrollQK = DP <= 128 ? DP / 16 : 2;
+#pragma unroll kUnrollQK
+    for (int d0 = 0; d0 < DP; d0 += 16) {
+      const float4 qx = *reinterpret_cast<const float4*>(qa + d0);
+      const float4 qy = *reinterpret_cast<const float4*>(qa + 8 * kLqk + d0);
+      uint32_t ah[2][4], al[2][4];
+      split_tf32(qx.x, ah[0][0], al[0][0]);
+      split_tf32(qy.x, ah[0][1], al[0][1]);
+      split_tf32(qx.y, ah[0][2], al[0][2]);
+      split_tf32(qy.y, ah[0][3], al[0][3]);
+      split_tf32(qx.z, ah[1][0], al[1][0]);
+      split_tf32(qy.z, ah[1][1], al[1][1]);
+      split_tf32(qx.w, ah[1][2], al[1][2]);
+      split_tf32(qy.w, ah[1][3], al[1][3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 kx =
+            *reinterpret_cast<const float4*>(kb + j * 8 * kLqk + d0);
+        uint32_t bh[2][2], bl[2][2];
+        split_tf32(kx.x, bh[0][0], bl[0][0]);
+        split_tf32(kx.y, bh[0][1], bl[0][1]);
+        split_tf32(kx.z, bh[1][0], bl[1][0]);
+        split_tf32(kx.w, bh[1][1], bl[1][1]);
+#pragma unroll
+        for (int st = 0; st < 2; ++st) {
+          mma_tf32(ss[j], al[st], bh[st]);
+          mma_tf32(ss[j], ah[st], bl[st]);
+          mma_tf32(sb[j], ah[st], bh[st]);
+        }
+      }
+    }
+    float sc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[j][i] = sb[j][i] + ss[j][i];
+
+    // masks only on the tiles that cross the kv_len edge or the diagonal;
+    // sc[j][2i + c] is (row r0 + 8i, key t0 + 8j + 2tc + c)
+    const bool edge = t0 + kF32Keys > k_lim;
+    const bool diag = p.causal && t0 + kF32Keys - 1 > q0 + offset;
+    if (edge || diag) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = t0 + 8 * j + 2 * tc + c;
+            const int row = q0 + r0 + 8 * i;
+            if (!(key < k_lim && (!p.causal || key <= row + offset)))
+              sc[j][2 * i + c] = -INFINITY;
+          }
+    }
+
+    // online softmax in base 2 over the 4 threads of a row; masked scores
+    // weigh exactly 0, so a row with no visible key keeps l == 0
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mx = fmaxf(mx, fmaxf(sc[j][2 * i], sc[j][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = fast_exp2(m[i] - m_use);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e = fast_exp2(sc[j][2 * i + c] - m_use);
+          sc[j][2 * i + c] = e;
+          sum += e;
+        }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        o[j][2 * i] *= alpha;
+        o[j][2 * i + 1] *= alpha;
+      }
+    }
+
+    // O += P.V, 8 keys a step, 16 columns (two n-blocks) a load; P is split
+    // like every operand: it must stay fp32 to hold 1e-4
+    const float* vb = sv + s * kTileV + 2 * tc * kLv + 2 * gr;
+#pragma unroll
+    for (int kk = 0; kk < kF32Keys / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(sc[kk][0], ah[0], al[0]);
+      split_tf32(sc[kk][2], ah[1], al[1]);
+      split_tf32(sc[kk][1], ah[2], al[2]);
+      split_tf32(sc[kk][3], ah[3], al[3]);
+#pragma unroll
+      for (int q = 0; q < DP / 16; ++q) {
+        const float2 va =
+            *reinterpret_cast<const float2*>(vb + kk * 8 * kLv + 16 * q);
+        const float2 vc = *reinterpret_cast<const float2*>(
+            vb + kk * 8 * kLv + kLv + 16 * q);
+        uint32_t bh[2], bl[2];
+        split_tf32(va.x, bh[0], bl[0]);
+        split_tf32(vc.x, bh[1], bl[1]);
+        mma_3xtf32(o[2 * q], ah, al, bh, bl);
+        split_tf32(va.y, bh[0], bl[0]);
+        split_tf32(vc.y, bh[1], bl[1]);
+        mma_3xtf32(o[2 * q + 1], ah, al, bh, bl);
+      }
+    }
+    __syncthreads();  // every warp is done with stage s before it refills
+  }
+
+  // epilogue: the row sums over the 4 threads of a row, then out's D
+  // columns (thread t holds 16q + 4t .. +3 of each 16-column group: one
+  // 16-byte store where D is a multiple of 4 and the output allows it)
+  // and the LSE, (m + log2 l) * ln 2
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const bool vec4 = p.o_vec && (D & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= p.Sq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    float* orow = p.o + b * p.o_sb + row * p.o_ss + h * p.o_sh;
+#pragma unroll
+    for (int q = 0; q < DP / 16; ++q) {
+      const int c = 16 * q + 4 * tc;
+      if (c < D) {
+        const float4 x = make_float4(
+            o[2 * q][2 * i] * inv, o[2 * q + 1][2 * i] * inv,
+            o[2 * q][2 * i + 1] * inv, o[2 * q + 1][2 * i + 1] * inv);
+        if (vec4) {
+          *reinterpret_cast<float4*>(orow + c) = x;
+        } else {
+          orow[c] = x.x;
+          if (c + 1 < D) orow[c + 1] = x.y;
+          if (c + 2 < D) orow[c + 2] = x.z;
+          if (c + 3 < D) orow[c + 3] = x.w;
+        }
+      }
+    }
+    if (p.lse != nullptr && tc == 0)
+      p.lse[(static_cast<long long>(b) * p.Sq + row) * p.H + h] =
+          l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : kNegInf;
+  }
+}
+
 // ------------------------------------------------------------------- host
 
 // cuTensorMapEncodeTiled, reached through the runtime so the library needs
@@ -979,53 +1227,6 @@ cudaError_t allow_smem(const void* fn, int smem, int device) {
   return err;
 }
 
-template <int DP>
-cudaError_t launch_simt(const LaunchArgs& a, cudaStream_t stream) {
-  const int smem = smem_floats<DP>() * static_cast<int>(sizeof(float));
-  if (a.smem != smem || a.threads != kWarps * 32 || a.D > DP || a.D < 1)
-    return cudaErrorInvalidValue;
-  // 98,432 bytes at DP=256: above the 48 KB default, so the attribute is
-  // set for every instantiation before its first launch
-  cudaError_t err =
-      allow_smem<0, DP>(reinterpret_cast<const void*>(flash_fwd_kernel<DP>),
-                        smem, static_cast<int>(a.device));
-  if (err != cudaSuccess) return err;
-  Params p;
-  p.q = reinterpret_cast<const float*>(a.q);
-  p.k = reinterpret_cast<const float*>(a.k);
-  p.v = reinterpret_cast<const float*>(a.v);
-  p.o = reinterpret_cast<float*>(a.o);
-  p.lse = reinterpret_cast<float*>(a.lse);
-  p.win = reinterpret_cast<const int*>(a.win);
-  p.kv_len = static_cast<int>(a.kv_len);
-  p.causal_offset = static_cast<int>(a.causal_offset);
-  p.B = static_cast<int>(a.B);
-  p.Sq = static_cast<int>(a.Sq);
-  p.Sk = static_cast<int>(a.Sk);
-  p.H = static_cast<int>(a.H);
-  p.G = static_cast<int>(a.G);
-  p.q_sb = a.q_sb; p.q_ss = a.q_ss; p.q_sh = a.q_sh;
-  p.k_sb = a.k_sb; p.k_ss = a.k_ss; p.k_sh = a.k_sh;
-  p.v_sb = a.v_sb; p.v_ss = a.v_ss; p.v_sh = a.v_sh;
-  p.o_sb = a.o_sb; p.o_ss = a.o_ss; p.o_sh = a.o_sh;
-  p.scale = static_cast<float>(a.scale);
-  p.causal = static_cast<int>(a.causal);
-  const dim3 grid(static_cast<unsigned>(a.grid_x), p.H, p.B);
-  flash_fwd_kernel<DP><<<grid, kWarps * 32, smem, stream>>>(
-      p, static_cast<int>(a.D));
-  return cudaGetLastError();
-}
-
-// the CUDA-core kernel at the head dim padded up to the next of 32, 64,
-// 128, 256
-cudaError_t launch_simt_any(const LaunchArgs& a, cudaStream_t stream) {
-  if (a.D <= 32) return launch_simt<32>(a, stream);
-  if (a.D <= 64) return launch_simt<64>(a, stream);
-  if (a.D <= 128) return launch_simt<128>(a, stream);
-  if (a.D <= 256) return launch_simt<256>(a, stream);
-  return cudaErrorInvalidValue;
-}
-
 template <typename T, int DP, bool kExact>
 cudaError_t launch_tc(const CUtensorMap& tq, const CUtensorMap& tk,
                       const CUtensorMap& tv, const TcParams& p, dim3 grid,
@@ -1103,6 +1304,60 @@ cudaError_t launch_wgmma_any(const LaunchArgs& a, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+template <int DP>
+cudaError_t launch_tf32x3(const LaunchArgs& a, cudaStream_t stream) {
+  constexpr int smem = f32_smem_bytes<DP>();
+  if (a.smem != smem || a.threads != kF32Threads || a.D > DP || a.D < 1)
+    return cudaErrorInvalidValue;
+  // above the 48 KB default from DP=48 on, so the attribute is set for
+  // every instantiation before its first launch
+  const cudaError_t err = allow_smem<0, DP>(
+      reinterpret_cast<const void*>(flash_fwd_tf32x3<DP>), smem,
+      static_cast<int>(a.device));
+  if (err != cudaSuccess) return err;
+  const auto vec = [](long long ptr, long long sb, long long ss,
+                      long long sh) {
+    return static_cast<int>(ptr % 16 == 0 && sb % 4 == 0 && ss % 4 == 0 &&
+                            sh % 4 == 0);
+  };
+  F32Params p;
+  p.q = reinterpret_cast<const float*>(a.q);
+  p.k = reinterpret_cast<const float*>(a.k);
+  p.v = reinterpret_cast<const float*>(a.v);
+  p.o = reinterpret_cast<float*>(a.o);
+  p.lse = reinterpret_cast<float*>(a.lse);
+  p.win = reinterpret_cast<const int*>(a.win);
+  p.kv_len = static_cast<int>(a.kv_len);
+  p.causal_offset = static_cast<int>(a.causal_offset);
+  p.B = static_cast<int>(a.B);
+  p.Sq = static_cast<int>(a.Sq);
+  p.Sk = static_cast<int>(a.Sk);
+  p.H = static_cast<int>(a.H);
+  p.G = static_cast<int>(a.G);
+  p.D = static_cast<int>(a.D);
+  p.q_sb = a.q_sb; p.q_ss = a.q_ss; p.q_sh = a.q_sh;
+  p.k_sb = a.k_sb; p.k_ss = a.k_ss; p.k_sh = a.k_sh;
+  p.v_sb = a.v_sb; p.v_ss = a.v_ss; p.v_sh = a.v_sh;
+  p.o_sb = a.o_sb; p.o_ss = a.o_ss; p.o_sh = a.o_sh;
+  p.scale_log2 = static_cast<float>(a.scale * 1.4426950408889634);
+  p.causal = static_cast<int>(a.causal);
+  p.q_vec = vec(a.q, a.q_sb, a.q_ss, a.q_sh);
+  p.k_vec = vec(a.k, a.k_sb, a.k_ss, a.k_sh);
+  p.v_vec = vec(a.v, a.v_sb, a.v_ss, a.v_sh);
+  p.o_vec = vec(a.o, a.o_sb, a.o_ss, a.o_sh);
+  const dim3 grid(static_cast<unsigned>(a.grid_x), p.H, p.B);
+  flash_fwd_tf32x3<DP><<<grid, kF32Threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the float32 kernel at the head dim rounded up to a multiple of 16
+template <int DP = 16>
+cudaError_t launch_tf32x3_any(const LaunchArgs& a, cudaStream_t stream) {
+  if (a.D <= DP) return launch_tf32x3<DP>(a, stream);
+  if constexpr (DP < 256) return launch_tf32x3_any<DP + 16>(a, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes: one launch on `stream` of the
@@ -1118,7 +1373,7 @@ extern "C" int demodel_flash_attention_fwd(const LaunchArgs* args,
     err = cudaSetDevice(static_cast<int>(a.device));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.kernel == 0) return launch_simt_any(a, s);
+  if (a.kernel == 0) return launch_tf32x3_any(a, s);
   if (a.kernel == 1) return launch_wgmma_any<__nv_bfloat16>(a, s);
   if (a.kernel == 2) return launch_wgmma_any<__half>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -18,11 +18,18 @@ Dispatch is by the tensors' device alone:
 - CUDA tensors go to a kernel in ``csrc/flash_attention.cu``, built
   with nvcc at first use into ``build/torch_kernels/`` and loaded with
   ctypes: bf16 and f16 at every head dim from 1 to 256 to the
-  tensor-core kernel (``wgmma`` over a TMA ring, instantiated per type
-  at the head dim padded to 64, 128 or 256), float32 at every head dim
-  up to 256 to the CUDA-core kernel (padded to 32, 64, 128 or 256). A
-  dtype or head dim that no kernel takes (float64, D > 256), a build or
-  a launch failure raises, and nothing falls back.
+  ``wgmma`` kernel (over a TMA ring, instantiated per type at the head
+  dim padded to 64, 128 or 256), float32 at every head dim up to 256 to
+  the 3xTF32 kernel (``mma.sync`` with every operand split into two TF32
+  values, instantiated at the head dim rounded up to a multiple of 16);
+  both run on the tensor cores.
+  A dtype or head dim that no kernel takes (float64, D > 256), a build
+  or a launch failure raises, and nothing falls back.
+
+Gradients: where one is wanted, the call goes through
+:class:`FlashAttention`, whose backward recomputes
+:func:`reference_attention_lse` and takes its VJP, the JAX package's
+``custom_vjp`` rule; the forward is the same one launch.
 
 :func:`launch_plan` makes every host-side choice of a launch (checks,
 kernel, windows by value or as a tensor, which TMA map reads each of q,
@@ -60,7 +67,7 @@ NEG_INF = -1e30
 #: reset it to 0 around the run they observe
 launches = 0
 #: the same launches by kernel (the names :func:`kernel_for` gives)
-launches_by_kernel = {"wgmma_bf16": 0, "wgmma_f16": 0, "simt_f32": 0}
+launches_by_kernel = {"wgmma_bf16": 0, "wgmma_f16": 0, "tf32x3_f32": 0}
 _launch_lock = threading.Lock()
 
 SOURCES = (_build.CSRC / "flash_attention.cu",)
@@ -70,17 +77,23 @@ NVCC_FLAGS = _build.NVCC_FLAGS
 #: padded head dims of the tensor-core kernel's instantiations, each
 #: taking every D up to it
 WGMMA_HEAD_DIMS = (64, 128, 256)
-#: the same for the CUDA-core kernel
-SIMT_HEAD_DIMS = (32, 64, 128, 256)
+#: the same for the float32 (3xTF32) kernel: every multiple of 16
+TF32X3_HEAD_DIMS = tuple(range(16, 257, 16))
 MAX_HEAD_DIM = 256
 _WGMMA = {torch.bfloat16: "wgmma_bf16", torch.float16: "wgmma_f16"}
 #: kernel name → (C enum, query rows per block, threads per block)
-KERNELS = {"simt_f32": (0, 32, 256), "wgmma_bf16": (1, 64, 160),
+KERNELS = {"tf32x3_f32": (0, 64, 128), "wgmma_bf16": (1, 64, 160),
            "wgmma_f16": (2, 64, 160)}
 #: LaunchArgs.maps bits: q, k, v read through the row map
 _ROW_MAP_BITS = (1, 2, 4)
-#: K/V ring depth of the tensor-core kernel
+#: K/V ring depth of both kernels
 STAGES = 2
+#: keys per K/V tile of the float32 kernel, and the floats past the padded
+#: head dim in each of its shared-memory rows of Q and K (where the head
+#: dim is a multiple of 32), and of V
+F32_KEYS = 32
+F32_PAD_QK = 16
+F32_PAD_V = 4
 _INT32 = (-2 ** 31, 2 ** 31 - 1)
 
 
@@ -213,13 +226,13 @@ class LaunchPlan(NamedTuple):
     windows: str
     kv_len: int                    # scalar windows only (else 0)
     causal_offset: int
-    #: q, k, v: copy first (tensor cores: contiguous, the head dim
-    #: padded to a multiple of 8, where neither TMA map reads the tensor
-    #: in place; CUDA cores: contiguous where the last stride is not 1)
+    #: q, k, v: copy first (bf16/f16: contiguous, the head dim padded to
+    #: a multiple of 8, where neither TMA map reads the tensor in place;
+    #: float32: contiguous where the last stride is not 1)
     copy: tuple[bool, bool, bool]
-    #: q, k, v: how the tensor-core kernel reads each (after any copy):
+    #: q, k, v: how the ``wgmma`` kernel reads each (after any copy):
     #: "4d" (D, heads, rows, batch) or "rows" (heads·D, rows, batch);
-    #: "strides" for the CUDA-core kernel, which reads through strides
+    #: "strides" for the float32 kernel, which reads through strides
     maps: tuple[str, str, str]
 
 
@@ -267,31 +280,38 @@ def _pad8(t: torch.Tensor) -> torch.Tensor:
 
 def kernel_for(dtype: torch.dtype, D: int) -> str:
     """The kernel that takes ``dtype`` at head dim ``D``: bf16 and f16 on
-    the tensor cores, float32 on the CUDA cores, each at every head dim
-    from 1 to :data:`MAX_HEAD_DIM`. Raises on what no kernel takes."""
+    ``wgmma``, float32 on the 3xTF32 ``mma.sync`` kernel, each at every
+    head dim from 1 to :data:`MAX_HEAD_DIM`. Raises on what no kernel
+    takes."""
     if dtype != torch.float32 and dtype not in _WGMMA:
         raise TypeError(f"flash kernel takes float32, bfloat16 or float16, "
                         f"got {dtype}")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"flash kernel takes head dims 1..{MAX_HEAD_DIM}, "
                          f"got {D}")
-    return _WGMMA.get(dtype, "simt_f32")
+    return _WGMMA.get(dtype, "tf32x3_f32")
 
 
 def padded_head_dim(kernel: str, D: int) -> int:
     """The instantiation of ``kernel`` that takes head dim ``D``."""
-    dims = WGMMA_HEAD_DIMS if kernel.startswith("wgmma") else SIMT_HEAD_DIMS
+    dims = WGMMA_HEAD_DIMS if kernel.startswith("wgmma") else \
+        TF32X3_HEAD_DIMS
     return next(dp for dp in dims if D <= dp)
 
 
 def smem_bytes(kernel: str, D: int) -> int:
     """Dynamic shared memory of one block at the padded head dim (mirrors
-    csrc's ``tc_smem_bytes``, 164,864 bytes at 256, and ``smem_floats``,
-    98,432 bytes at 256)."""
+    csrc's ``tc_smem_bytes``, 164,864 bytes at 256, and
+    ``f32_smem_bytes``: the Q tile and the K ring in rows of DP + 16
+    floats where DP is a multiple of 32, else DP (``f32_ld_qk``), the V
+    ring in rows of DP + 4; 205,824 bytes at 256)."""
     dp = padded_head_dim(kernel, D)
+    _, rows, _ = KERNELS[kernel]
     if kernel.startswith("wgmma"):
-        return 64 * dp * 2 * (1 + 2 * STAGES) + 1024
-    return 4 * (32 * dp + 32 * (dp + 1) + 32 * dp)
+        return rows * dp * 2 * (1 + 2 * STAGES) + 1024
+    ld_qk = dp + F32_PAD_QK if dp % 32 == 0 else dp
+    return 4 * (ld_qk * (rows + STAGES * F32_KEYS)
+                + (dp + F32_PAD_V) * STAGES * F32_KEYS)
 
 
 def launch_plan(q, k, v, kv_len=None, causal_offset=None) -> LaunchPlan:
@@ -378,14 +398,65 @@ def _flash_cuda(q, k, v, kv_len, causal_offset, causal: bool, scale: float,
     return out, lse
 
 
+def _flash_forward(q, k, v, kv_len, causal_offset, causal: bool,
+                   scale: float, with_lse: bool):
+    """The forward on ``q``'s device: the plain version for CPU tensors,
+    one kernel launch for CUDA tensors."""
+    if q.device.type == "cpu":
+        B, Sq, Sk = q.shape[0], q.shape[1], k.shape[1]
+        kvb, offb = _windows(kv_len, causal_offset, B, Sq, Sk, q.device)
+        return _flash_plain(q, k, v, kvb, offb, causal, scale)
+    return _flash_cuda(q, k, v, kv_len, causal_offset, causal, scale,
+                       with_lse)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 with the JAX package's ``custom_vjp`` rule (``_flash_core``):
+    the forward is :func:`_flash_forward` (one launch on the card), the
+    backward recomputes :func:`reference_attention_lse` on the saved
+    inputs with the same windows and takes its VJP, in ``(g_out, g_lse)``
+    when the LSE is returned and in ``g_out`` alone otherwise. There is no
+    backward kernel: the JAX package has none either. The integer windows
+    get no gradient. A row with no visible key gets the reference's
+    gradient (softmax over all-masked scores averages V), as in JAX, not
+    the gradient of the forward's zeros."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal_offset, causal, scale,
+                return_lse):
+        out, lse = _flash_forward(q, k, v, kv_len, causal_offset, causal,
+                                  scale, return_lse)
+        ctx.save_for_backward(q, k, v)
+        ctx.windows = (kv_len, causal_offset)
+        ctx.causal, ctx.scale = causal, scale
+        return (out, lse) if return_lse else out
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse=None):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            out, lse = reference_attention_lse(*inputs, ctx.causal,
+                                               ctx.scale, *ctx.windows)
+            outs, grads = [out], [g_out]
+            if g_lse is not None:
+                outs.append(lse)
+                grads.append(g_lse)
+            dq, dk, dv = torch.autograd.grad(outs, inputs, grads)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, kv_len=None, causal: bool = True, scale=None,
                     causal_offset=None, return_lse: bool = False):
     """Fused attention. q: (B, Sq, H, D); k/v: (B, Sk, G, D) with G | H.
     Returns (B, Sq, H, D) in q's dtype (plus the per-row log-sum-exp,
     (B, Sq, H) fp32, when ``return_lse``). k and v in another dtype than
-    q are promoted with q, as the JAX kernel reads every tile in fp32."""
+    q are promoted with q, as the JAX kernel reads every tile in fp32.
+    Where a gradient is wanted (grad mode on and q, k or v requiring it)
+    the call goes through :class:`FlashAttention`, which saves q, k and v
+    for its recompute backward; otherwise it is the forward alone."""
     B, Sq, H, D = q.shape
-    Sk, G = k.shape[1], k.shape[2]
+    G = k.shape[2]
     if G == 0 or H % G != 0:
         raise ValueError(f"q heads {H} not a multiple of kv heads {G}")
     if q.device.type not in ("cpu", "cuda"):
@@ -397,12 +468,14 @@ def flash_attention(q, k, v, kv_len=None, causal: bool = True, scale=None,
         dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
                                  v.dtype)
         q, k, v = q.to(dt), k.to(dt), v.to(dt)
-    if q.device.type == "cpu":
-        kvb, offb = _windows(kv_len, causal_offset, B, Sq, Sk, q.device)
-        out, lse = _flash_plain(q, k, v, kvb, offb, causal, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        res = FlashAttention.apply(q, k, v, kv_len, causal_offset, causal,
+                                   scale, return_lse)
+        out, lse = res if return_lse else (res, None)
     else:
-        out, lse = _flash_cuda(q, k, v, kv_len, causal_offset, causal, scale,
-                               return_lse)
+        out, lse = _flash_forward(q, k, v, kv_len, causal_offset, causal,
+                                  scale, return_lse)
     if out.dtype != out_dtype:
         out = out.to(out_dtype)
     return (out, lse) if return_lse else out

@@ -5,20 +5,21 @@ Run from a checkout's root on a machine with one NVIDIA H100:
 
     python3 -m demodel_tpu_torch.probes.k1_prefill
 
-It uses only what every port checkout since the CUDA-core head-dim
-kernel has (``flash_attention``, ``launch_plan``, ``_flash_plain``,
+It uses only what every port checkout since K1 took every head dim
+has (``flash_attention``, ``launch_plan``, ``_flash_plain``,
 ``LlamaConfig``, ``init_params``, ``step_prefill``) and
 :mod:`~demodel_tpu_torch.probes.device_time`, the device-time rule
 ``chip_smoke.py`` reads too, so this file and that one can be copied
 into an older checkout's ``probes/`` and run there. It prints
 one JSON line: the card and its power limit; the build log's ptxas
-warnings; for each K1 case (B=1, causal) the kernel its plan picks, the
-max abs error against ``_flash_plain``, and K1's and all kernels'
-device ms per call (torch.profiler over 20 calls after a warm-up); and
-for a prefill of 512 and of 2048 tokens through OpenLLaMA-3B's widths
-(hidden 3200, 32 heads of 100, 26 layers, intermediate 8640, f16, seeded
-random weights) the ms per prefill (CUDA events, mean of 5) and K1's and
-all kernels' device ms per prefill. Where the checkout reads packed
+warnings; for each K1 case (B=1, causal; bf16, f16 or f32) the kernel
+its plan picks, the max abs error against ``_flash_plain``, and K1's and
+all kernels' device ms per call (torch.profiler over 20 calls after a
+warm-up); and for a prefill of 512 and of 2048 tokens through
+OpenLLaMA-3B's widths (hidden 3200, 32 heads of 100, 26 layers,
+intermediate 8640, f16, seeded random weights) the ms per prefill (CUDA
+events, mean of 5) and K1's and all kernels' device ms per prefill.
+Where the checkout reads packed
 heads through the row map, the D=100 cases and the prefills run a second
 time with that map turned off (``pad``: q, k and v copied with their
 head dim padded to 104), so the two designs are compared in one run. A
@@ -41,7 +42,12 @@ CASES = (("d64_bf16", 64, 32, 32, "bfloat16", 512),
          ("d96_bf16", 96, 32, 8, "bfloat16", 512),
          ("d256_bf16", 256, 32, 8, "bfloat16", 512),
          ("d100_f16", 100, 32, 32, "float16", 512),
-         ("d100_f16_s2048", 100, 32, 32, "float16", 2048))
+         ("d100_f16_s2048", 100, 32, 32, "float16", 2048),
+         ("d80_f32", 80, 32, 8, "float32", 512),
+         ("d100_f32", 100, 32, 32, "float32", 512),
+         ("d128_f32", 128, 32, 32, "float32", 512),
+         ("d256_f32", 256, 32, 8, "float32", 512),
+         ("d128_f32_s2048", 128, 32, 32, "float32", 2048))
 #: OpenLLaMA-3B's config.json (openlm-research/open_llama_3b)
 OPENLLAMA_3B = {"hidden_size": 3200, "intermediate_size": 8640,
                 "num_attention_heads": 32, "num_hidden_layers": 26,

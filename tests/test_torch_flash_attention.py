@@ -204,12 +204,18 @@ def test_plan_main_path_f16_goes_to_tensor_cores(S):
 
 @pytest.mark.parametrize("D", [64, 128])
 def test_plan_f32_goes_to_cuda_cores(D):
+    """float32 goes to its own kernel (3xTF32 on the tensor cores since
+    the CUDA-core one was replaced): 64 rows a block of 128 threads, the
+    Q tile and the 2-stage K/V ring of 32 keys, Q and K in rows of D + 16
+    floats, V in rows of D + 4, at the head dim itself (a multiple of
+    16)."""
     q = torch.zeros(2, 70, 8, D)
     k = torch.zeros(2, 90, 2, D)
     plan = tfa.launch_plan(q, k, k)
-    assert plan.kernel == "simt_f32" and plan.threads == 256
-    assert plan.grid == (3, 8, 2)
-    assert plan.smem_bytes == 4 * (32 * D + 32 * (D + 1) + 32 * D)
+    assert plan.kernel == "tf32x3_f32" and plan.threads == 128
+    assert plan.grid == (2, 8, 2)
+    assert plan.smem_bytes == 4 * ((D + 16) * (64 + 64) + (D + 4) * 64)
+    assert tfa.padded_head_dim(plan.kernel, D) == D
     # defaults: kv_len = Sk, causal_offset = kv_len - Sq
     assert (plan.windows, plan.kv_len, plan.causal_offset) == ("scalar", 90,
                                                                20)
@@ -246,7 +252,7 @@ def test_plan_copies_only_what_tma_cannot_read():
     assert tfa.launch_plan(q, padded, wide).copy == (False, True, False)
     assert tfa.launch_plan(q, wide, shifted).copy == (False, False, True)
     assert tfa.launch_plan(q, padded, wide).maps == ("4d",) * 3
-    # the CUDA-core kernel reads any strides with a unit last one
+    # the float32 kernel reads any strides with a unit last one
     fq = torch.zeros(2, 32, 8, 128)
     fpadded = torch.zeros(2, 40, 2, 132)[..., :128]
     ftransposed = torch.zeros(2, 40, 128, 2).transpose(2, 3)
@@ -279,33 +285,35 @@ def test_plan_rejects_what_no_kernel_takes(q, k, err):
 
 
 #: head dims other than 64 and 128 (100: OpenLLaMA-3B's), with the
-#: padded head dim of the CUDA-core (f32) and the tensor-core (bf16, f16)
+#: padded head dim of the f32 (3xTF32) and the bf16/f16 (``wgmma``)
 #: instantiation that takes each
-ODD_HEAD_DIMS = {8: (32, 64), 32: (32, 64), 80: (128, 128), 96: (128, 128),
-                 100: (128, 128), 256: (256, 256)}
+ODD_HEAD_DIMS = {8: (16, 64), 32: (32, 64), 80: (80, 128), 96: (96, 128),
+                 100: (112, 128), 256: (256, 256)}
 
 
 @pytest.mark.parametrize("dtype,suffix", [(torch.float32, "f32")],
                          ids=["f32"])
 @pytest.mark.parametrize("D", sorted(ODD_HEAD_DIMS))
 def test_plan_every_head_dim_goes_to_cuda_cores(D, dtype, suffix):
-    """Every float32 head dim: the CUDA-core kernel, 32 rows a block,
-    shared memory for the padded head dim (98,432 bytes at 256, above
-    the 48 KB default)."""
+    """Every float32 head dim: the float32 kernel (3xTF32 on the tensor
+    cores), 64 rows a block, shared memory for the padded head dim
+    (205,824 bytes at 256, above the 48 KB default), read in place
+    through strides."""
     q = torch.zeros(1, 512, 32, D, dtype=dtype)
     k = torch.zeros(1, 512, 8, D, dtype=dtype)
     plan = tfa.launch_plan(q, k, k, kv_len=512)
     dp = ODD_HEAD_DIMS[D][0]
-    assert plan.kernel == f"simt_{suffix}"
+    assert plan.kernel == f"tf32x3_{suffix}"
     assert plan.code == tfa.KERNELS[plan.kernel][0]
-    assert (plan.grid, plan.threads) == ((16, 32, 1), 256)
+    assert (plan.grid, plan.threads) == ((8, 32, 1), 128)
     assert tfa.padded_head_dim(plan.kernel, D) == dp
-    assert plan.smem_bytes == 4 * (32 * dp + 32 * (dp + 1) + 32 * dp)
+    ld_qk = dp + 16 if dp % 32 == 0 else dp
+    assert plan.smem_bytes == 4 * (ld_qk * (64 + 64) + (dp + 4) * 64)
     assert plan.copy == (False, False, False)
     assert plan.maps == ("strides",) * 3
     assert plan.kernel in tfa.launches_by_kernel
     if D == 256:
-        assert plan.smem_bytes == 98432
+        assert plan.smem_bytes == 205824
 
 
 @pytest.mark.parametrize("dtype,suffix", [
@@ -417,7 +425,7 @@ def test_plan_row_map_takes_q_and_k_only_together(G, maps, copy):
 @pytest.mark.parametrize("D", sorted(ODD_HEAD_DIMS))
 def test_flash_matches_jax_kernel_at_every_head_dim(D, dtype):
     """The function the kernels compute at head dims other than 64 and 128
-    (the f32 CUDA-core kernel, the bf16 tensor-core kernel at the padded
+    (the f32 3xTF32 kernel, the bf16 ``wgmma`` kernel, each at the padded
     head dim), against the Pallas kernel in interpret mode: GQA, causal,
     a per-batch kv_len; f32 at 2e-5, bf16 at 2e-2 (the reference's
     tolerances)."""
@@ -500,7 +508,7 @@ def test_routing_default_is_the_device(monkeypatch, device, want):
 
 @pytest.mark.parametrize("dtype,D,err", [
     (torch.float16, 8, "wgmma_f16"),      # LlamaConfig.tiny() in f16
-    (torch.float32, 32, "simt_f32"),
+    (torch.float32, 32, "tf32x3_f32"),
     (torch.bfloat16, 96, "wgmma_bf16"),
     (torch.float16, 100, "wgmma_f16"),    # OpenLLaMA-3B
     (torch.float64, 128, TypeError),
@@ -510,8 +518,8 @@ def test_routing_default_is_the_device(monkeypatch, device, want):
 def test_cuda_shape_without_kernel_raises_not_einsum(monkeypatch, dtype, D,
                                                      err):
     """Unset, every CUDA shape routes to the kernel: each bf16 or f16 head
-    dim up to 256 is planned on the tensor-core kernel and each float32
-    one on the CUDA-core kernel, and what no kernel takes (float64, a
+    dim up to 256 is planned on the ``wgmma`` kernel and each float32
+    one on the 3xTF32 kernel, and what no kernel takes (float64, a
     head dim past 256) raises in the plan. Nothing on the card drops to
     einsum unless the caller says ``DEMODEL_FLASH_ATTN=0``."""
     monkeypatch.delenv("DEMODEL_FLASH_ATTN", raising=False)
@@ -533,7 +541,7 @@ def test_cuda_shape_without_kernel_raises_not_einsum(monkeypatch, dtype, D,
 def test_llama_asks_the_rule_per_layer(monkeypatch, env, want_calls):
     """The model asks the rule with its tensors' device at every layer:
     as if they were on CUDA, the tiny config's head dim of 8 reaches the
-    kernel wrapper (on the card, the f32 CUDA-core kernel);
+    kernel wrapper (on the card, the f32 3xTF32 kernel);
     ``DEMODEL_FLASH_ATTN=0`` keeps it on einsum."""
     from demodel_tpu_torch.models import common as tcommon
     from demodel_tpu_torch.models import llama as tl
@@ -588,11 +596,11 @@ def test_tiny_config_plans_on_its_dtype_kernel(dtype, kernel):
     assert tfa.padded_head_dim(plan.kernel, tcfg.head_dim) == 64
 
 
-@pytest.mark.parametrize("dtype,kernel", [("float32", "simt_f32")])
+@pytest.mark.parametrize("dtype,kernel", [("float32", "tf32x3_f32")])
 def test_tiny_config_goes_through_the_cuda_core_kernel(monkeypatch, dtype,
                                                        kernel):
     """``LlamaConfig.tiny()`` (head dim 8) in f32: its prefill's q/k/v
-    plan onto the CUDA-core kernel, and its fp32 logits through the
+    plan onto the float32 (3xTF32) kernel, and its fp32 logits through the
     kernel's plain version stay within 2e-4 of the JAX package's."""
     from demodel_tpu.models import llama as jl
     from demodel_tpu_torch.models import convert
