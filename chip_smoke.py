@@ -76,7 +76,12 @@ Phases, each printing one line:
    by K2–K4: the stored blob's sha256 is its digest, every placed tensor
    equals ``deliver_gguf`` of the same bytes from the host buffer, one
    tensor per ggml type is held against its plain dequant, and the
-   dequant launches per format are those the file needs;
+   dequant launches per format are those the file needs; then the
+   sharded phase's gguf leg: that store behind the port's
+   ``ProxyServer`` and ``pull_manifest_to_hbm(source="ollama")`` of the
+   Q4_0 and Q8_0 models onto the card with no store on this side (K3 and
+   K4e, then K2), every tensor equal to ``deliver_gguf`` of the stored
+   blob, launches per format those the file needs;
 9. pull — a cold pull from a HuggingFace-style registry served by this
    script (stdlib ``http.server`` on 127.0.0.1: the Hub API, resolve
    with its 302 to a CDN path, Range) of an F16 Llama-2-7B-width
@@ -94,6 +99,19 @@ Phases, each printing one line:
    from the peer, every placed tensor equals the pull phase's, the
    17-token prompt's tokens equal the pull phase's, K1 launches all on
    ``wgmma_f16``; then the gossip thread and the proxy stop;
+10b. sharded — the pull phase's store behind the port's ``ProxyServer``
+   again; ``sink.remote.pull_manifest_to_hbm`` places the checkpoint off
+   it onto the card with no store on this side (the prefetch pipeline,
+   the tuner, native window fetches): every placed tensor equals the pull
+   phase's, network bytes equal weight bytes equal the checkpoint's, no
+   window fell back to the Python transport; ``materialize_aux_files``
+   writes ``config.json``, the model is built from it and the placement
+   (``load_llama_params``, ``serve.boot``) and the 17-token prompt's
+   tokens equal the pull phase's, K1 launches all on ``wgmma_f16``; then
+   two ``SwarmScheduler`` hosts, each behind its own ``RestoreServer``,
+   place it at once: both placements equal, origin chunk bytes exactly
+   the checkpoint's (1×), peer chunk bytes the same (the other copy), no
+   chunk re-fetched;
 11. tiny — ``LlamaConfig.tiny()`` (head dim 8) in f32, bf16 and f16:
    served through K1 by default (f32 on ``tf32x3_f32``, bf16 and f16 on
    ``wgmma_*`` at padded head dim 64), engine tokens equal to
@@ -127,6 +145,7 @@ import threading
 import time
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 
 #: kernel vs plain version, max abs error on outputs of O(1)-scaled inputs:
 #: bf16 output rounding (8-bit mantissa) and summation order; f32 summation
@@ -1450,6 +1469,86 @@ def _ollama_pull(cfg, url: str, kind: str, name: str) -> dict:
             "held_vs_plain": held, "files": len(report["files"])}
 
 
+#: the Ollama models the sharded phase's gguf leg places off a peer
+SHARDED_GGUF_KINDS = ("q4_0", "q8_0")
+
+
+def _sharded_gguf(cfg) -> dict[str, int]:
+    """The sharded phase's gguf leg: the ollama phase's store behind the
+    port's ``ProxyServer``, and ``pull_manifest_to_hbm(source="ollama")``
+    of its 2-layer Q4_0 and Q8_0 models onto the card (the per-file path
+    into ``deliver_gguf``: K3 and K4e, then K2). Gates: the dequant
+    launches per format are those the file needs, and every placed
+    tensor equals ``deliver_gguf`` of the stored blob (not counted).
+    Returns the launches."""
+    import torch
+
+    from demodel_tpu_torch.config import ProxyConfig
+    from demodel_tpu_torch.delivery import open_store
+    from demodel_tpu_torch.ops import dequant as dq
+    from demodel_tpu_torch.parallel.peer import PeerGossip
+    from demodel_tpu_torch.proxy import ProxyServer
+    from demodel_tpu_torch.sink import deliver_gguf, pull_manifest_to_hbm
+    from demodel_tpu_torch.utils.metrics import HUB
+
+    total = {f: 0 for f in DEQUANT_FORMATS}
+    peer_cfg = ProxyConfig(host="127.0.0.1", port=0, no_mitm=True,
+                           cache_dir=cfg.cache_dir, data_dir=cfg.data_dir)
+    proxy = ProxyServer(peer_cfg, session_threads=8).start()
+    try:
+        for kind in SHARDED_GGUF_KINDS:
+            name = OLLAMA_KINDS[kind]
+            want = {f: 0 for f in DEQUANT_FORMATS}
+            for _, _, fmt in _GGUF_BUILT[kind][1]:
+                if fmt != "f32":
+                    want[fmt] += 1
+            fallback0 = HUB.get("peer_window_fallback_total")
+            torch.cuda.synchronize()
+            for fmt in dq.launches:
+                dq.launches[fmt] = 0
+            t0 = time.perf_counter()
+            report, placed = pull_manifest_to_hbm(name, [proxy.url],
+                                                  source="ollama")
+            wall_s = time.perf_counter() - t0
+            launches = dict(dq.launches)
+            if launches != want:
+                raise AssertionError(f"sharded gguf {name}: dequant "
+                                     f"launches {launches}, expected {want}")
+            layer = next(f for f in report["files"]
+                         if f["media_type"] == OLLAMA_MODEL_MEDIA)
+            store = open_store(cfg)
+            try:
+                ref = deliver_gguf(store, layer["key"],
+                                   out_dtype=torch.bfloat16)
+            finally:
+                store.close()
+            unequal = sorted(set(placed.arrays) ^ set(ref.arrays)) or [
+                n for n, a in placed.arrays.items()
+                if not (a.dtype == torch.bfloat16 and a.device.type == "cuda"
+                        and torch.equal(a, ref.arrays[n]))]
+            fallbacks = HUB.get("peer_window_fallback_total") - fallback0
+            if unequal or report["pipelined"] or fallbacks:
+                raise AssertionError(
+                    f"sharded gguf {name}: tensors differ from deliver_gguf "
+                    f"of the stored blob {unequal[:5]}, pipelined "
+                    f"{report['pipelined']}, fallbacks {fallbacks}")
+            for fmt, n in launches.items():
+                total[fmt] += n
+            _say("sharded_gguf", model=name, file=kind,
+                 weight_bytes=report["weight_bytes"],
+                 network_bytes=report["network_bytes"], pull_s=wall_s,
+                 pull_GBps=report["weight_bytes"] / wall_s / 1e9,
+                 tensors_equal=len(placed.arrays),
+                 launches={k: v for k, v in launches.items() if v},
+                 window_fallbacks=fallbacks)
+            del placed, ref
+            torch.cuda.empty_cache()
+    finally:
+        PeerGossip.reset_shared()
+        proxy.stop()
+    return total
+
+
 def phase_ollama() -> dict[str, int]:
     """Ollama pulls of the gguf phase's Q4_K_M, Q4_0 and Q8_0 files
     through an in-script registry-v2 onto the card; returns the dequant
@@ -1490,6 +1589,8 @@ def phase_ollama() -> dict[str, int]:
             for fmt, n in row["launches"].items():
                 total[fmt] += n
             _say("ollama", **row, digest_s=round(digest_s, 3))
+        for fmt, n in _sharded_gguf(cfg).items():
+            total[fmt] += n
     finally:
         reg.shutdown()
         reg.server_close()
@@ -1930,6 +2031,204 @@ def phase_peer(rig: _HubRig, pulled: dict) -> int:
     return launches
 
 
+#: the swarm leg's hosts (one process, one card, a chunk board and a
+#: swarm serve surface each)
+SWARM_HOSTS = ("hA", "hB")
+
+
+def _weight_bytes(rig: _HubRig) -> int:
+    return sum(len(b) for n, b in rig.files.items()
+               if n.endswith(".safetensors"))
+
+
+def _sharded_leg(rig: _HubRig, pulled: dict, url: str) -> tuple[int, dict]:
+    """``pull_manifest_to_hbm`` of the pull phase's checkpoint off the
+    peer at ``url`` onto the card (no store on this side), then the model
+    built from the placement and ``config.json`` alone and served; its
+    K1 launches and its row."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from demodel_tpu_torch import serve
+    from demodel_tpu_torch.models.hf_loader import load_llama_params
+    from demodel_tpu_torch.models.llama import LlamaConfig
+    from demodel_tpu_torch.ops import flash_attention as fa
+    from demodel_tpu_torch.serve import http
+    from demodel_tpu_torch.sink.remote import (fetch_manifest,
+                                               materialize_aux_files,
+                                               pull_manifest_to_hbm)
+    from demodel_tpu_torch.utils.metrics import HUB
+
+    weight = _weight_bytes(rig)
+    fallback0 = HUB.get("peer_window_fallback_total")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report, placed = pull_manifest_to_hbm(PULL_MODEL, [url], source="hf")
+    wall_s = time.perf_counter() - t0
+    fallbacks = HUB.get("peer_window_fallback_total") - fallback0
+    knobs = {k: HUB.get_gauge(f"tuner_{k}")
+             for k in ("streams", "window_bytes", "prefetch_depth")}
+    decisions = {k.split('"')[1]: v for k, v in HUB.snapshot().items()
+                 if k.startswith("tuner_decisions_total{")}
+    unequal = _unequal(placed.arrays, pulled["placed"])
+    if unequal:
+        raise AssertionError(f"sharded: placed tensors differ from the pull "
+                             f"phase's: {unequal[:5]}")
+    if not (report["network_bytes"] == report["weight_bytes"] == weight):
+        raise AssertionError(f"sharded: network_bytes "
+                             f"{report['network_bytes']}, weight_bytes "
+                             f"{report['weight_bytes']}, checkpoint {weight}")
+    if not report["pipelined"] or fallbacks:
+        raise AssertionError(f"sharded: pipelined {report['pipelined']}, "
+                             f"native window fallbacks {fallbacks}")
+
+    # build from config.json and the placement only, then serve
+    engine = server = None
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-aux-") as aux:
+        peer, manifest = fetch_manifest([url], PULL_MODEL)
+        written = materialize_aux_files(manifest, peer, aux)
+        config = json.loads((Path(aux) / "config.json").read_text())
+    mcfg = dataclasses.replace(LlamaConfig.from_hf(config), dtype="float16")
+    if mcfg.num_hidden_layers != PULL_LAYERS:
+        raise AssertionError(f"sharded: config.json gives {mcfg}")
+    try:
+        torch.cuda.synchronize()
+        _reset_k1()  # the served request's launches only
+        t1 = time.perf_counter()
+        params = load_llama_params(placed.arrays, mcfg, device="cuda")
+        engine = serve.boot(params, mcfg, device="cuda", kv_mb=1024,
+                            max_new_tokens=PULL_NEW, max_batch=4,
+                            queue_limit=8, model=PULL_MODEL)
+        server = http.start()
+        tokens = _generate_http(f"{server.url}/generate", pulled["prompt"],
+                                PULL_NEW)
+        serve_s = time.perf_counter() - t1
+        by_kernel = dict(fa.launches_by_kernel)
+    finally:
+        if engine is not None:
+            engine.stop()
+        if server is not None:
+            server.stop()
+        serve.install(None)
+    launches = sum(by_kernel.values())
+    if tokens != pulled["tokens"]:
+        raise AssertionError(f"sharded: tokens {tokens} vs the pull "
+                             f"phase's {pulled['tokens']}")
+    if launches != PULL_LAYERS or by_kernel["wgmma_f16"] != launches:
+        raise AssertionError(f"sharded: K1 launches {by_kernel}, expected "
+                             f"{PULL_LAYERS} on wgmma_f16")
+    row = {"weight_bytes": weight, "network_bytes": report["network_bytes"],
+           "pull_s": wall_s, "pull_GBps": weight / wall_s / 1e9,
+           "report_secs": report["secs"], "block_secs": report["block_secs"],
+           "phase_secs": report["phase_secs"], "tuner_knobs": knobs,
+           "tuner_decisions": decisions, "window_fallbacks": fallbacks,
+           "aux_files": sorted(p.name for p in written),
+           "tensors_equal": len(placed.arrays), "build_and_serve_s": serve_s,
+           "tokens": tokens, "k1_launches_by_kernel": by_kernel}
+    del placed, params, engine
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def _swarm_leg(rig: _HubRig, pulled: dict, url: str) -> dict:
+    """Two swarm hosts in this process, each with its chunk board behind
+    its own ``RestoreServer``, placing the checkpoint at once off the one
+    origin peer at ``url``; its row."""
+    import torch
+
+    from demodel_tpu_torch.restore.server import RestoreServer
+    from demodel_tpu_torch.sink.remote import (SwarmScheduler,
+                                               pull_manifest_to_hbm)
+    from demodel_tpu_torch.utils.metrics import HUB
+
+    names = ("swarm_origin_bytes_total", "swarm_peer_bytes_total",
+             "swarm_chunks_refetched_total", "swarm_chunks_reaped_total",
+             "swarm_bytes_served_total")
+    before = {k: HUB.get(k) for k in names}
+    servers = {h: RestoreServer(host="127.0.0.1").start()
+               for h in SWARM_HOSTS}
+    parts = {h: f"http://127.0.0.1:{s.port}" for h, s in servers.items()}
+    scheds = [SwarmScheduler("chip-smoke", h, parts) for h in SWARM_HOSTS]
+    results: dict = {}
+    errors: list = []
+
+    def run(s):
+        try:
+            results[s.self_id] = pull_manifest_to_hbm(
+                PULL_MODEL, [url], source="hf", swarm=s)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(s,)) for s in scheds]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall_s = time.perf_counter() - t0
+        if errors or len(results) != len(scheds):
+            raise AssertionError(f"swarm: {errors or 'a host did not end'}")
+        stats = {s.self_id: s.stats() for s in scheds}
+    finally:
+        for s in scheds:
+            s.close()
+        for srv in servers.values():
+            srv.stop()
+    weight = _weight_bytes(rig)
+    delta = {k: HUB.get(k) - before[k] for k in names}
+    for host, (report, placed) in results.items():
+        unequal = _unequal(placed.arrays, pulled["placed"])
+        if unequal or report["weight_bytes"] != weight:
+            raise AssertionError(f"swarm {host}: tensors differ from the "
+                                 f"pull phase's {unequal[:5]}, weight bytes "
+                                 f"{report['weight_bytes']}")
+    if (delta["swarm_origin_bytes_total"] != weight
+            or delta["swarm_peer_bytes_total"] != weight
+            or delta["swarm_chunks_refetched_total"]):
+        raise AssertionError(f"swarm: {delta} against {weight} weight bytes "
+                             "(want origin 1x, peer 1x, no re-fetch)")
+    row = {"hosts": len(scheds), "weight_bytes": weight, "wall_s": wall_s,
+           "aggregate_GBps": len(scheds) * weight / wall_s / 1e9,
+           "chunk_bytes": scheds[0].chunk_bytes,
+           "chunks": stats[SWARM_HOSTS[0]]["chunks_total"], **delta,
+           "owned_chunks": {h: st["owned_chunks"] for h, st in stats.items()},
+           "network_bytes": {h: r["network_bytes"]
+                             for h, (r, _) in results.items()},
+           "phase_secs": {h: r["phase_secs"]
+                          for h, (r, _) in results.items()},
+           "tensors_equal": {h: len(p.arrays)
+                             for h, (_, p) in results.items()}}
+    del results
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_sharded(rig: _HubRig, pulled: dict) -> int:
+    """The sharded pull off a warm peer: the pull phase's store behind
+    the port's ``ProxyServer``, then (1) ``pull_manifest_to_hbm`` onto the
+    card with no store on this side, built from ``config.json`` and
+    served, and (2) the same pull by two swarm hosts at once. Returns the
+    K1 launches (all on ``wgmma_f16``)."""
+    from demodel_tpu_torch.parallel.peer import PeerGossip
+    from demodel_tpu_torch.proxy import ProxyServer
+
+    proxy = ProxyServer(pulled["cfg"], session_threads=8).start()
+    try:
+        launches, row = _sharded_leg(rig, pulled, proxy.url)
+        _say("sharded", model=f"{PULL_MODEL} widths, {PULL_LAYERS} layers, "
+             "f16", **row)
+        _say("swarm", model=f"{PULL_MODEL} widths, {PULL_LAYERS} layers, "
+             "f16", **_swarm_leg(rig, pulled, proxy.url))
+    finally:
+        PeerGossip.reset_shared()
+        proxy.stop()
+    return launches
+
+
 def phase_tiny() -> dict[str, int]:
     """``LlamaConfig.tiny()`` (head dim 8) on the card in f32, bf16 and
     f16. By default it is served through K1 (f32 on the 3xTF32
@@ -2197,6 +2496,7 @@ def main() -> int:
     try:
         k1["wgmma_f16"], pulled = phase_pull(rig)
         k1["wgmma_f16"] += phase_peer(rig, pulled)
+        k1["wgmma_f16"] += phase_sharded(rig, pulled)
         del pulled
     finally:
         rig.close()

@@ -144,6 +144,9 @@ def _configure(L: ctypes.CDLL) -> None:
     # peer fetch into the store (proxy.cc)
     sig("dm_peer_fetch_parallel", I64,
         [P, CP, I, CP, CP, I64, I, CP, CP, CP, I])
+    # one window of a peer object into a host buffer over Range streams
+    # (proxy.cc; sink/remote.py's PeerBlobReader)
+    sig("dm_peer_fetch_window", I64, [CP, I, CP, I64, I64, I64, I, P, CP, I])
     # the proxy that serves a store to peers (proxy.py)
     sig("dm_proxy_new", P,
         [CP, I, I, I, CP, CP, CP, I, P, I, I, I64, I64, I, I64, I, I, I, I,

@@ -1,5 +1,4 @@
-"""Peer shard cache (the port of ``demodel_tpu/parallel/peer.py``, one
-hop, no swarm).
+"""Peer shard cache (the port of ``demodel_tpu/parallel/peer.py``).
 
 Every node's proxy serves its content-addressed store on
 ``/peer/index``, ``/peer/meta/{key}`` and ``/peer/object/{key}`` (the C++
@@ -7,7 +6,9 @@ data plane, range-aware; :class:`demodel_tpu_torch.proxy.ProxyServer`
 serves it in the port). This module is the client side: find which peer
 holds a key (or the same content under another key), fetch it into the
 store with digest verification and resume, and say so when no peer has
-it, so the caller goes to the upstream registry.
+it, so the caller goes to the upstream registry (:func:`ensure_artifacts`
+over a whole artifact list). :meth:`PeerGossip.split` tells a sharded
+pull which peers are alive without a probe round.
 
 HTTP goes through :class:`~demodel_tpu_torch.utils.faults.HTTPClient`
 (one connection per host per thread) under the wire retry policy and the
@@ -22,6 +23,7 @@ import json
 import re
 import threading
 import time
+from dataclasses import dataclass, field
 from typing import ClassVar
 
 from demodel_tpu_torch import native, tier
@@ -137,16 +139,41 @@ class PeerGossip:
         if start:
             self._thread.start()
 
+    def _fresh(self, peer: str,
+               max_age: float) -> tuple[frozenset | None, bool] | None:
+        with self._lock:
+            e = self._entries.get(peer.rstrip("/"))
+        if e is None or time.monotonic() - e[2] > max_age:
+            return None
+        return e[1], e[3]
+
     def keys(self, peer: str) -> frozenset | None:
         """The possession set of ``peer`` if gossip saw it within three
         refresh periods, else None (the caller fetches the index
         itself)."""
-        with self._lock:
-            e = self._entries.get(peer.rstrip("/"))
-        if e is None or time.monotonic() - e[2] > 3 * self.refresh_s \
-                or not e[3]:
+        e = self._fresh(peer, 3 * self.refresh_s)
+        if e is None or not e[1]:
             return None
-        return e[1]
+        return e[0]
+
+    def split(self, peers: list, max_age: float | None = None
+              ) -> tuple[list, list, list]:
+        """``(alive, dead, unknown)`` partition of ``peers`` by gossip
+        freshness: only ``unknown`` (never heard from) peers still need a
+        real probe."""
+        age = max_age if max_age is not None else 3 * self.refresh_s
+        alive: list = []
+        dead: list = []
+        unknown: list = []
+        for p in peers:
+            e = self._fresh(p, age)
+            if e is None:
+                unknown.append(p)
+            elif e[1]:
+                alive.append(p)
+            else:
+                dead.append(p)
+        return alive, dead, unknown
 
     def _refresh_loop(self) -> None:
         client = HTTPClient()
@@ -170,6 +197,14 @@ class PeerGossip:
             self.observe(peer, set(_index_keys(r.json())), ok=True)
         except PEER_ERRORS:
             self.observe(peer, None, ok=False)
+
+
+@dataclass
+class PeerStats:
+    from_peers: int = 0
+    from_upstream: int = 0
+    peer_bytes: int = 0
+    misses: list = field(default_factory=list)
 
 
 class PeerSet:
@@ -403,3 +438,52 @@ class PeerSet:
             return False
         return True
 
+
+def ensure_artifacts(store: Store, artifacts: list, peers: PeerSet | None,
+                     upstream_fetch=None) -> PeerStats:
+    """Make every artifact local: peer first, upstream fallback.
+
+    ``artifacts`` are objects or dicts with ``key``/``sha256``/``name``;
+    ``upstream_fetch(artifact)`` runs for anything no peer holds.
+    """
+    from demodel_tpu_torch.registry.base import parallel_fetch
+
+    stats = PeerStats()
+    stats_lock = threading.Lock()
+    t0 = time.perf_counter()
+
+    def field_of(art, name: str, default=None):
+        return getattr(art, name) if hasattr(art, name) \
+            else art.get(name, default)
+
+    def ensure_one(art):
+        key = field_of(art, "key")
+        sha = field_of(art, "sha256")
+        name = field_of(art, "name", key)
+        if store.has(key):
+            return
+        if peers is not None and peers.fetch_into(store, key,
+                                                  expected_digest=sha):
+            with stats_lock:
+                stats.from_peers += 1
+                stats.peer_bytes += store.size(key)
+            return
+        if upstream_fetch is not None:
+            upstream_fetch(art)
+            with stats_lock:
+                stats.from_upstream += 1
+        else:
+            with stats_lock:
+                stats.misses.append(name)
+
+    # dedup by key: concurrent writers on one key would collide
+    unique: dict[str, object] = {}
+    for art in artifacts:
+        unique.setdefault(field_of(art, "key"), art)
+    parallel_fetch(list(unique.values()), ensure_one)
+    if stats.from_peers or stats.from_upstream:
+        log.info("ensured %d artifacts in %.2fs: %d from peers (%.1f MB), "
+                 "%d upstream", len(artifacts), time.perf_counter() - t0,
+                 stats.from_peers, stats.peer_bytes / 1e6,
+                 stats.from_upstream)
+    return stats

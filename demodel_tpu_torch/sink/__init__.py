@@ -1,5 +1,5 @@
-"""Placement plane of the port: blobs from a store or a host buffer onto
-the device (``demodel_tpu/sink``)."""
+"""Placement plane of the port: blobs from a store, a host buffer or warm
+peers onto the device (``demodel_tpu/sink``)."""
 
 from demodel_tpu_torch.sink.hbm import (
     Placement,
@@ -9,6 +9,8 @@ from demodel_tpu_torch.sink.hbm import (
     place_tensor,
 )
 from demodel_tpu_torch.sink.plan import ShardingPlan
+from demodel_tpu_torch.sink.remote import PeerBlobReader, pull_manifest_to_hbm
 
 __all__ = ["Placement", "deliver_gguf", "deliver_report_to_hbm",
-           "deliver_safetensors", "place_tensor", "ShardingPlan"]
+           "deliver_safetensors", "place_tensor", "ShardingPlan",
+           "PeerBlobReader", "pull_manifest_to_hbm"]

@@ -2,7 +2,8 @@
 ``demodel_tpu/tier.py`` that the serving plane and a registry pull use.
 
 - :class:`TierBudget` — byte accounting for one tier (the paged KV pool
-  charges one, so generation KV memory is accounted like the RAM tier).
+  charges one, so generation KV memory is accounted like the RAM tier;
+  swarm chunk boards charge :func:`ram_budget`).
 - :func:`shared` — one :class:`TieredStore` per store root, whose
   :class:`SingleFlight` collapses concurrent fetches of one key into one
   upstream transfer (``Fetcher.fetch``), and whose :meth:`~TieredStore.enforce`
@@ -10,7 +11,8 @@
 
 The host-RAM hot tier and the watermark read path (``TieredStore.read``)
 come with the slice that serves from the store; until then nothing is
-promoted into RAM, so ``enforce`` has only the disk tier to trim.
+promoted into RAM, so ``enforce`` has only the disk tier to trim, and a
+chunk board's charge to :func:`ram_budget` has no hot object to evict.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import weakref
 from typing import Any, Callable
 
 from demodel_tpu_torch.store import Store
-from demodel_tpu_torch.utils.env import cache_max_gb
+from demodel_tpu_torch.utils.env import cache_max_gb, default_tier_ram_mb
 from demodel_tpu_torch.utils.logging import get_logger
 from demodel_tpu_torch.utils.metrics import HUB
 
@@ -60,6 +62,20 @@ class TierBudget:
             return {"name": self.name, "max_bytes": self.max_bytes,
                     "in_use_bytes": self._in_use,
                     "high_water_bytes": self.high_water}
+
+
+#: the process-wide host-RAM tier budget (``DEMODEL_TIER_RAM_MB``)
+_ram_budget: TierBudget | None = None
+_ram_budget_lock = threading.Lock()
+
+
+def ram_budget() -> TierBudget:
+    global _ram_budget
+    with _ram_budget_lock:
+        if _ram_budget is None:
+            _ram_budget = TierBudget("tier-ram",
+                                     default_tier_ram_mb() << 20)
+        return _ram_budget
 
 
 # ---------------------------------------------------------- single-flight

@@ -32,6 +32,31 @@ def env_int(name: str, default: int, minimum: int | None = None) -> int:
     return val
 
 
+def env_bool(name: str, default: bool) -> bool:
+    raw = os.environ.get(name, "").strip().lower()
+    if not raw:
+        return default
+    if raw in _TRUE:
+        return True
+    if raw in _FALSE:
+        return False
+    log.warning("%s=%r is not a boolean; using default %s", name, raw,
+                default)
+    return default
+
+
+def env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        log.warning("%s=%r is not a float; using default %s", name, raw,
+                    default)
+        return default
+
+
 def flash_attn_env() -> bool | None:
     """``DEMODEL_FLASH_ATTN``: the caller's explicit choice of the fused
     attention kernel (1/true/yes/on) or the einsum path (0/false/no/off);
@@ -100,3 +125,40 @@ def default_peer_streams() -> int:
     1-core host only contend)."""
     return env_int("DEMODEL_PEER_STREAMS", max(1, min(8, available_cpus())),
                    minimum=1)
+
+
+def default_pull_window_mb() -> int:
+    """``DEMODEL_PULL_WINDOW_MB``: fetch window granularity of a sharded
+    pull (32: large enough to amortize per-window overhead, small enough
+    that one flaky window's retry stays cheap)."""
+    return env_int("DEMODEL_PULL_WINDOW_MB", 32, minimum=1)
+
+
+def tuner_enabled() -> bool:
+    """``DEMODEL_TUNER``: the adaptive pull tuner, on unless disabled
+    (``=0`` keeps every knob at its fixed default)."""
+    return env_bool("DEMODEL_TUNER", True)
+
+
+def default_swarm_chunk_mb() -> int:
+    return env_int("DEMODEL_SWARM_CHUNK_MB", 8, minimum=1)
+
+
+def default_swarm_fill_timeout() -> float:
+    return float(env_int("DEMODEL_SWARM_FILL_TIMEOUT", 60, minimum=1))
+
+
+def default_swarm_origin_streams() -> int:
+    return env_int("DEMODEL_SWARM_ORIGIN_STREAMS", 1, minimum=1)
+
+
+def swarm_reap_enabled() -> bool:
+    """``DEMODEL_SWARM_REAP=0`` keeps every chunk on the board until
+    ``close()`` (a warm standby that wants to keep serving)."""
+    return env_bool("DEMODEL_SWARM_REAP", True)
+
+
+def default_tier_ram_mb() -> int:
+    """``DEMODEL_TIER_RAM_MB``: the host-RAM tier's byte budget in MB,
+    which swarm chunk boards charge."""
+    return env_int("DEMODEL_TIER_RAM_MB", 256, minimum=1)

@@ -12,9 +12,12 @@ standard library's ``http.client``.
   truncated bodies retry; digest mismatches and other 4xx don't.
 - :class:`PeerHealth` — a process-wide registry of per-peer
   :class:`CircuitBreaker`\\ s (closed → open after consecutive failures →
-  admissible again after a cooldown), shared by every peer caller, so
-  a peer that dies mid-pull stops costing each remaining file a full
-  timeout.
+  one half-open probe per cooldown until a success closes it), shared
+  by every peer caller, so a peer that dies mid-pull stops costing each
+  remaining file a full timeout.
+- :func:`peer_cannot_serve` — a healthy peer that cannot serve this
+  object (a missing blob, an ignored Range): the caller fails over to
+  another peer instead of retrying this one.
 - :func:`request_with_retry` — one request under a policy, feeding a
   peer's breaker when ``health=`` and ``peer=`` name one.
 
@@ -57,10 +60,20 @@ class TruncatedBody(WireError):
     close — retryable: the next attempt resumes at the received offset."""
 
 
+class RangeIgnored(WireError):
+    """The peer answered 200-from-zero to a nonzero Range request. Not
+    retryable against the same peer (it will ignore the next Range too);
+    :func:`peer_cannot_serve` marks it failover-eligible."""
+
+
 class DigestMismatch(IOError):
     """Delivered bytes hash wrong. NOT retryable: the transfer completed,
     so the wire is fine and the server's copy (or our expectation) is
     poisoned — re-reading the same object cannot converge."""
+
+
+class BreakerOpen(IOError):
+    """A request was refused locally because the peer's breaker is open."""
 
 
 class HTTPError(IOError):
@@ -86,7 +99,7 @@ def retryable(exc: BaseException) -> bool:
     """The classification every wire caller shares: transport errors,
     resets, timeouts, 429/5xx and truncated bodies retry; digest
     mismatches, JSON junk, other 4xx and local (store) errors don't."""
-    if isinstance(exc, DigestMismatch):
+    if isinstance(exc, (DigestMismatch, BreakerOpen, RangeIgnored)):
         return False
     if isinstance(exc, WireError):
         return True
@@ -97,6 +110,19 @@ def retryable(exc: BaseException) -> bool:
         return False  # junk content (json.JSONDecodeError), not the wire
     return isinstance(exc, (http.client.HTTPException, ConnectionError,
                             TimeoutError, ssl.SSLError, socket.gaierror))
+
+
+def peer_cannot_serve(exc: BaseException) -> bool:
+    """THIS peer cannot serve THIS object, though the peer is healthy: a
+    missing blob (404/410), an unsatisfiable or ignored Range, an
+    unimplemented method. Not a health event and not worth a same-peer
+    retry — but a rotation holding the same key tries its next peer."""
+    if isinstance(exc, RangeIgnored):
+        return True
+    if isinstance(exc, HTTPError):
+        status = exc.response.status_code
+        return 400 <= status < 500 and status not in RETRYABLE_STATUS
+    return False
 
 
 # --------------------------------------------------------------- HTTP client
@@ -317,6 +343,19 @@ class RetryPolicy:
     def deadline_left(self, start: float) -> float:
         return self.deadline - (self.clock() - start)
 
+    def should_retry(self, attempt: int, start: float,
+                     exc: BaseException) -> float | None:
+        """The retry decision for loops with their own resume semantics
+        (partial windows): None means give up (not retryable, attempt cap
+        or deadline), else the jittered, deadline-clipped backoff to sleep
+        before attempt+1."""
+        if not retryable(exc):
+            return None
+        left = self.deadline_left(start)
+        if attempt >= self.max_attempts or left <= 0:
+            return None
+        return min(self.next_delay(attempt), left)
+
     def call(self, fn: Callable[[], T], *, what: str = "",
              peer: str | None = None,
              health: "PeerHealth | None" = None) -> T:
@@ -342,7 +381,7 @@ class RetryPolicy:
                     # same-peer retries are the stampede it exists to stop
                     raise
                 delay = min(self.next_delay(attempt), max(0.0, left))
-                count_retry(delay, peer)
+                count_retry(delay=delay, peer=peer)
                 log.warning("%s failed (%s: %s); retry %d/%d in %.2fs",
                             what or "wire call", type(e).__name__, e,
                             attempt, self.max_attempts - 1, delay)
@@ -356,7 +395,7 @@ class RetryPolicy:
 def count_retry(delay: float | None = None, peer: str | None = None) -> None:
     """One retry against ``peer`` (or an upstream when None); ``delay``
     (the backoff about to be slept) feeds the ``retry_delay_seconds``
-    histogram."""
+    histogram. The reference takes ``(peer, delay)``: call by keyword."""
     name = "peer_retries_total"
     metrics.HUB.inc(metrics.labeled(name, peer=peer) if peer else name)
     if delay is not None:
@@ -374,16 +413,17 @@ def default_breaker_cooldown() -> float:
     return float(env_int("DEMODEL_BREAKER_COOLDOWN", 15, minimum=1))
 
 
-#: ``peer_breaker_state`` gauge values (the reference's; its half-open
-#: state, 1, belongs to the probe the swarm's callers claim)
-STATE_CLOSED, STATE_OPEN = 0, 2
+#: ``peer_breaker_state`` gauge values
+STATE_CLOSED, STATE_HALF_OPEN, STATE_OPEN = 0, 1, 2
+
+_STATE_NAMES = {STATE_CLOSED: "closed", STATE_HALF_OPEN: "half-open",
+                STATE_OPEN: "open"}
 
 
 class CircuitBreaker:
     """Per-peer breaker: closed → open after ``threshold`` consecutive
-    failures; once ``cooldown`` has passed the peer is admissible again,
-    a success closes the breaker and a failure restarts the cooldown.
-    Thread-safe; the clock is injectable."""
+    failures → one half-open probe per ``cooldown`` until a success closes
+    it again. Thread-safe; the clock is injectable."""
 
     def __init__(self, peer: str, threshold: int, cooldown: float,
                  clock: Callable[[], float] = time.monotonic) -> None:
@@ -395,20 +435,54 @@ class CircuitBreaker:
         self._state = STATE_CLOSED
         self._failures = 0
         self._opened_at = 0.0
+        self._probing = False
+        self._probe_started = 0.0
 
     def state(self) -> int:
         with self._lock:
             return self._state
 
     def admissible(self) -> bool:
-        """Could a request go to this peer now?"""
+        """Read-only: could a request go to this peer now? For filters
+        that may never dial the peer — it claims no probe slot
+        (:meth:`allow` claims)."""
         with self._lock:
-            return (self._state == STATE_CLOSED
-                    or self._clock() - self._opened_at >= self.cooldown)
+            if self._state == STATE_CLOSED:
+                return True
+            now = self._clock()
+            if self._state == STATE_OPEN:
+                return now - self._opened_at >= self.cooldown
+            return not (self._probing
+                        and now - self._probe_started < self.cooldown)
+
+    def allow(self) -> bool:
+        """May a request go to this peer now? Call it right before
+        dialing: an open breaker whose cooldown elapsed admits exactly
+        one caller as the half-open probe (the claim is this call);
+        everyone else is refused until the probe reports."""
+        with self._lock:
+            if self._state == STATE_CLOSED:
+                return True
+            now = self._clock()
+            if self._state == STATE_OPEN:
+                if now - self._opened_at < self.cooldown:
+                    return False
+                self._set_state(STATE_HALF_OPEN)
+                self._probing = True
+                self._probe_started = now
+                return True
+            # half-open: one probe in flight; re-admit if the prober
+            # vanished without reporting
+            if self._probing and now - self._probe_started < self.cooldown:
+                return False
+            self._probing = True
+            self._probe_started = now
+            return True
 
     def record_success(self) -> None:
         with self._lock:
             self._failures = 0
+            self._probing = False
             if self._state != STATE_CLOSED:
                 log.info("peer %s breaker closed", self.peer)
                 self._set_state(STATE_CLOSED)
@@ -416,12 +490,15 @@ class CircuitBreaker:
     def record_failure(self) -> None:
         with self._lock:
             self._failures += 1
+            failed_probe = self._state == STATE_HALF_OPEN
+            self._probing = False
             if self._state == STATE_OPEN:
                 # a dial past the elapsed cooldown failed: the peer is
                 # still dead, so the cooldown starts again
                 self._opened_at = self._clock()
                 return
-            if self._failures >= self.threshold:
+            if failed_probe or (self._state == STATE_CLOSED
+                                and self._failures >= self.threshold):
                 self._opened_at = self._clock()
                 self._set_state(STATE_OPEN)
                 metrics.HUB.inc(metrics.labeled(
@@ -429,6 +506,22 @@ class CircuitBreaker:
                 log.warning("peer %s breaker OPEN (%d consecutive "
                             "failures); cooling down %.1fs", self.peer,
                             self._failures, self.cooldown)
+
+    def describe(self) -> dict[str, Any]:
+        """State name, consecutive failures, cooldown and, when not
+        closed, how long the peer has been cooling."""
+        with self._lock:
+            out: dict[str, Any] = {
+                "state": _STATE_NAMES.get(self._state, str(self._state)),
+                "failures": self._failures,
+                "threshold": self.threshold,
+                "cooldown_sec": self.cooldown,
+            }
+            if self._state != STATE_CLOSED:
+                out["open_age_sec"] = round(
+                    max(0.0, self._clock() - self._opened_at), 3)
+                out["probe_in_flight"] = self._probing
+            return out
 
     def _set_state(self, state: int) -> None:
         # caller holds self._lock
@@ -478,7 +571,12 @@ class PeerHealth:
                     peer, self.threshold, self.cooldown, self._clock)
             return b
 
+    def allow(self, peer: str) -> bool:
+        """Claiming check — call right before dialing ``peer``."""
+        return self.breaker(peer).allow()
+
     def admissible(self, peer: str) -> bool:
+        """Read-only check — for filters that may never dial ``peer``."""
         return self.breaker(peer).admissible()
 
     def record_success(self, peer: str) -> None:
@@ -486,6 +584,20 @@ class PeerHealth:
 
     def record_failure(self, peer: str) -> None:
         self.breaker(peer).record_failure()
+
+    def describe(self) -> dict[str, dict[str, Any]]:
+        """``peer → breaker snapshot`` for every peer this process has
+        talked to; creates no breaker and claims no probe."""
+        with self._lock:
+            breakers = dict(self._breakers)
+        return {peer: b.describe() for peer, b in sorted(breakers.items())}
+
+    def healthy(self, peers: list[str]) -> list[str]:
+        """``peers`` the breakers admit, order kept, read-only; the full
+        list when every breaker refuses (a rotation with no source would
+        turn a brown-out into an outage)."""
+        alive = [p for p in peers if self.admissible(p)]
+        return alive if alive else list(peers)
 
 
 def request_with_retry(client: HTTPClient, method: str, url: str, *,

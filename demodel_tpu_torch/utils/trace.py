@@ -4,9 +4,12 @@
 A span times one operation on the monotonic clock; spans nest through a
 ``contextvars`` ambient parent so :func:`event` lands on the innermost
 open one. Each finished span observes its duration into
-``stage_duration_seconds{span=<name>}``, as the JAX plane does, so the
-``/metrics`` scrape shows where serving time goes (``serve.admit``,
-``serve.prefill``, ``serve.decode-step``).
+``stage_duration_seconds{span=<name>}`` and adds it to
+``trace_span_seconds_total{span=<name>}`` (counted in
+``trace_spans_total``), as the JAX plane does, so the ``/metrics``
+scrape shows where serving and pull time goes (``serve.prefill``,
+``window-read``, ``budget-wait``, ``place``) and the pull tuner reads
+the budget-wait share of wall time as a rate.
 """
 
 from __future__ import annotations
@@ -54,6 +57,31 @@ class Span:
         self.dur = time.perf_counter() - self._t0
         HUB.observe(labeled("stage_duration_seconds", span=self.name),
                     self.dur)
+        HUB.inc(labeled("trace_spans_total", span=self.name))
+        HUB.inc(labeled("trace_span_seconds_total", span=self.name),
+                self.dur)
+
+
+class _NoopSpan:
+    """A span that records nothing: the placeholder for an attribute
+    that holds a span only while its owner runs."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *exc: object) -> None:
+        return None
+
+    def set_attr(self, key: str, value: Any) -> None:
+        return None
+
+    def event(self, name: str, **attrs: Any) -> None:
+        return None
+
+
+NOOP = _NoopSpan()
 
 
 def span(name: str, **attrs: Any) -> Span:

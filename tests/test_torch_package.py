@@ -61,6 +61,17 @@ def _module_name(path: Path) -> str:
     return ".".join(parts)
 
 
+def test_the_pull_and_swarm_modules_are_checked():
+    """The sharded pull, the tuner and the swarm's serve surface are among
+    the modules every check below imports and scans, and ``requests`` is
+    as forbidden as jax: the port's wire is ``http.client``."""
+    names = {_module_name(p) for p in MODULES}
+    assert {"demodel_tpu_torch.sink.remote", "demodel_tpu_torch.sink.tuner",
+            "demodel_tpu_torch.restore.server"} <= names
+    assert _forbidden("requests") and _forbidden("requests.adapters")
+    assert not _forbidden("requests_toolbelt_like")
+
+
 def test_forbidden_names_match_whole_modules():
     assert _forbidden("jax.numpy") and _forbidden("demodel_tpu.serve")
     assert not _forbidden("demodel_tpu_torch.serve")
@@ -137,7 +148,7 @@ def test_source_imports_only_stdlib_torch_numpy_triton(path):
 @pytest.mark.parametrize("entry", [
     "init_params", "init_cache", "params_from_numpy", "load_llama_params",
     "GenEngine", "boot", "make_mesh", "deliver_gguf", "deliver_safetensors",
-    "dequant_gguf_tensor", "load_model"])
+    "dequant_gguf_tensor", "load_model", "pull_manifest_to_hbm"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default resolves")
@@ -161,6 +172,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
             np.ones(4, np.float32)),
         "load_model": lambda: serve.load_model(
             "org/m", ProxyConfig(cache_dir="unused", data_dir="unused")),
+        "pull_manifest_to_hbm": lambda: sink.pull_manifest_to_hbm(
+            "org/m", ["http://127.0.0.1:9"]),
     }
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         calls[entry]()
