@@ -11,7 +11,8 @@ Phases, each printing one line:
 1. device — the card, its power limit, and TF32 switched off for both
    matmul and cuDNN; which compilers the machine has and whether
    ``requests``, ``cryptography`` and ``jax`` are installed (recorded,
-   not used);
+   not used); the OpenSSL version of the libcrypto the port's ``pki``
+   loads;
 2. build — nvcc builds the flash-attention and dequant kernels (csrc/)
    for sm_90a and g++ the store library (native/), one compiler per
    library, started together; the library must hold exactly the flash
@@ -112,6 +113,22 @@ Phases, each printing one line:
    place it at once: both placements equal, origin chunk bytes exactly
    the checkpoint's (1×), peer chunk bytes the same (the other copy), no
    chunk re-fetched;
+10c. mitm — the MITM front door: the pull phase's Hub and a registry-v2
+   holding the ollama phase's Q4_0 file, both over TLS (a CA and a
+   127.0.0.1 leaf from the port's ``pki``), behind the port's
+   ``ProxyServer`` intercepting both with its own CA (RSA, the default)
+   and a store of its own. A ``huggingface-cli``-shaped client (urllib,
+   trusting only the port's CA) fetches every file through it, following
+   the 302 to the CDN: sha256 equal to the source, one leaf minted, every
+   object committed whole, then a warm pass (``config.json`` and a 64 MiB
+   Range of each shard) with no Hub request. ``synthesize_manifest``
+   turns the cache into the model's record (synth keys, sizes, sha256),
+   served on ``/peer``; the sharded leg places it off the proxy onto the
+   card (the sharded phase's gates: tensors, bytes, no fallback, tokens,
+   K1 on ``wgmma_f16``); an ``ollama pull``-shaped client fetches the Q4_0
+   model, its record is synthesized and ``pull_manifest_to_hbm`` places
+   it through K3 and K4e, equal to ``deliver_gguf`` of the buffer; and
+   ``python -m demodel_tpu_torch.cli manifest`` prints the same record;
 11. tiny — ``LlamaConfig.tiny()`` (head dim 8) in f32, bf16 and f16:
    served through K1 by default (f32 on ``tf32x3_f32``, bf16 and f16 on
    ``wgmma_*`` at padded head dim 64), engine tokens equal to
@@ -139,10 +156,13 @@ from __future__ import annotations
 import json
 import os
 import re
+import ssl
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.parse
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
@@ -211,6 +231,8 @@ def phase_device() -> str:
 
     import torch
 
+    from demodel_tpu_torch import pki
+
     if os.environ.get("DEMODEL_FLASH_ATTN", "").strip().lower() in (
             "0", "false", "no", "off"):
         raise SystemExit("chip_smoke: DEMODEL_FLASH_ATTN=0 turns the kernel "
@@ -228,7 +250,8 @@ def phase_device() -> str:
                      "cudnn": torch.backends.cudnn.allow_tf32},
          which={t: shutil.which(t) for t in ("g++", "c++", "make", "nvcc")},
          installed={m: importlib.util.find_spec(m) is not None
-                    for m in ("requests", "cryptography", "jax")})
+                    for m in ("requests", "cryptography", "jax")},
+         openssl=pki.openssl_version())
     return smi
 
 
@@ -1266,6 +1289,8 @@ GGUF_FILES = (("q4_k_m", 32), ("q4_0", 2), ("q8_0", 2), ("q2_k", 2),
 #: the gguf phase's files the ollama phase serves, by Ollama model name
 OLLAMA_KINDS = {"q4_k_m": "llama:7b-q4_K_M", "q4_0": "llama:7b-q4_0-2l",
                 "q8_0": "llama:7b-q8_0-2l"}
+#: the one of them the mitm phase's Ollama leg pulls through the proxy
+MITM_GGUF_KIND = "q4_0"
 #: (buffer, specs) of those files, as the gguf phase built them
 _GGUF_BUILT: dict[str, tuple] = {}
 
@@ -1318,6 +1343,8 @@ def _ollama_handler(models: dict[str, dict], blobs: dict[str, object]):
             self.do_GET()
 
         def do_GET(self):
+            if self.path in ("/v2/", "/v2"):  # the ping; no token needed
+                return self._send(200, b"{}")
             m = re.match(r"^/v2/(.+?)/manifests/([^/]+)$", self.path)
             if m:
                 doc = models.get(f"{m[1]}:{m[2]}")
@@ -1494,7 +1521,8 @@ def _sharded_gguf(cfg) -> dict[str, int]:
     total = {f: 0 for f in DEQUANT_FORMATS}
     peer_cfg = ProxyConfig(host="127.0.0.1", port=0, no_mitm=True,
                            cache_dir=cfg.cache_dir, data_dir=cfg.data_dir)
-    proxy = ProxyServer(peer_cfg, session_threads=8).start()
+    proxy = ProxyServer(peer_cfg, verbose=False,
+                        session_threads=8).start()
     try:
         for kind in SHARDED_GGUF_KINDS:
             name = OLLAMA_KINDS[kind]
@@ -1549,31 +1577,42 @@ def _sharded_gguf(cfg) -> dict[str, int]:
     return total
 
 
+#: the side blobs of every Ollama model the script serves
+OLLAMA_SIDE = {"config": json.dumps({"model_format": "gguf",
+                                     "model_family": "llama",
+                                     "file_type": "seeded"}).encode(),
+               "license": b"LLAMA 2 COMMUNITY LICENSE (test)",
+               "params": json.dumps({"stop": ["</s>"]}).encode()}
+
+
+def _ollama_models(kinds) -> tuple[dict, dict]:
+    """The registry's manifests ({"library/repo:tag": manifest}) and
+    blobs ({digest: bytes-like}) of the gguf phase's files ``kinds``."""
+    models, blobs = {}, {}
+    for kind in kinds:
+        buf = _GGUF_BUILT[kind][0]
+        manifest, digest = _ollama_manifest(buf, OLLAMA_SIDE)
+        repo, _, tag = OLLAMA_KINDS[kind].partition(":")
+        models[f"library/{repo}:{tag}"] = manifest
+        blobs[digest] = buf
+        blobs.update({d["digest"]: OLLAMA_SIDE[k] for k, d in zip(
+            ("config", "license", "params"),
+            (manifest["config"], *manifest["layers"][1:]))})
+    return models, blobs
+
+
 def phase_ollama() -> dict[str, int]:
     """Ollama pulls of the gguf phase's Q4_K_M, Q4_0 and Q8_0 files
     through an in-script registry-v2 onto the card; returns the dequant
-    launches per format over the three pulls."""
+    launches per format over the three pulls. Every buffer but the
+    mitm phase's is dropped at the end."""
     import shutil
     import tempfile
 
     from demodel_tpu_torch.config import ProxyConfig
 
-    side = {"config": json.dumps({"model_format": "gguf",
-                                  "model_family": "llama",
-                                  "file_type": "seeded"}).encode(),
-            "license": b"LLAMA 2 COMMUNITY LICENSE (test)",
-            "params": json.dumps({"stop": ["</s>"]}).encode()}
-    models, blobs = {}, {}
     t0 = time.perf_counter()
-    for kind, name in OLLAMA_KINDS.items():
-        buf = _GGUF_BUILT[kind][0]
-        manifest, digest = _ollama_manifest(buf, side)
-        repo, _, tag = name.partition(":")
-        models[f"library/{repo}:{tag}"] = manifest
-        blobs[digest] = buf
-        blobs.update({d["digest"]: side[k] for k, d in zip(
-            ("config", "license", "params"),
-            (manifest["config"], *manifest["layers"][1:]))})
+    models, blobs = _ollama_models(OLLAMA_KINDS)
     digest_s = time.perf_counter() - t0
     reg = ThreadingHTTPServer(("127.0.0.1", 0), _ollama_handler(models,
                                                                 blobs))
@@ -1595,7 +1634,8 @@ def phase_ollama() -> dict[str, int]:
         reg.shutdown()
         reg.server_close()
         shutil.rmtree(tmp, ignore_errors=True)
-    _GGUF_BUILT.clear()
+    for kind in set(_GGUF_BUILT) - {MITM_GGUF_KIND}:
+        del _GGUF_BUILT[kind]
     return total
 
 
@@ -1728,8 +1768,10 @@ def _hf_handler(repos: dict[str, dict[str, bytes]]):
                 sha = digests[repo][fname]
                 if fname.endswith(".safetensors"):
                     host = self.headers.get("Host", "127.0.0.1")
+                    scheme = "https" if isinstance(self.connection,
+                                                   ssl.SSLSocket) else "http"
                     return self._send(302, extra={
-                        "Location": f"http://{host}/cdn/{repo}/{sha}",
+                        "Location": f"{scheme}://{host}/cdn/{repo}/{sha}",
                         "X-Linked-Etag": f'"{sha}"',
                         "X-Linked-Size": str(len(body)),
                         "X-Repo-Commit": PULL_COMMIT,
@@ -1757,6 +1799,7 @@ def _hf_handler(repos: dict[str, dict[str, bytes]]):
             self._send(404, b'{"error":"not found"}')
 
     Hub.counts = counts
+    Hub.digests = digests
     return Hub
 
 
@@ -1982,7 +2025,8 @@ def phase_peer(rig: _HubRig, pulled: dict) -> int:
     from demodel_tpu_torch.proxy import ProxyServer
     from demodel_tpu_torch.utils.metrics import HUB
 
-    proxy = ProxyServer(pulled["cfg"], session_threads=8).start()
+    proxy = ProxyServer(pulled["cfg"], verbose=False,
+                        session_threads=8).start()
     try:
         cfg = rig.config("peer-cache")
         hub_before = dict(rig.counts)
@@ -2216,7 +2260,8 @@ def phase_sharded(rig: _HubRig, pulled: dict) -> int:
     from demodel_tpu_torch.parallel.peer import PeerGossip
     from demodel_tpu_torch.proxy import ProxyServer
 
-    proxy = ProxyServer(pulled["cfg"], session_threads=8).start()
+    proxy = ProxyServer(pulled["cfg"], verbose=False,
+                        session_threads=8).start()
     try:
         launches, row = _sharded_leg(rig, pulled, proxy.url)
         _say("sharded", model=f"{PULL_MODEL} widths, {PULL_LAYERS} layers, "
@@ -2227,6 +2272,333 @@ def phase_sharded(rig: _HubRig, pulled: dict) -> int:
         PeerGossip.reset_shared()
         proxy.stop()
     return launches
+
+
+# ----------------------------------------------------------------- mitm
+
+#: where the mitm phase's TLS servers listen, the host its leaf is for
+MITM_HOST = "127.0.0.1"
+#: the warm pass's Range on each shard
+MITM_RANGE = 64 << 20
+#: how long the store may take to commit what the client fetched
+MITM_COMMIT_S = 300.0
+#: the native plane's kernel-TLS switch for the mitm phase's proxy: on
+#: the H100 host's emulated kernel (release "4.4.0") the plane's kTLS
+#: test passes, and every client handshake with kTLS asked for then
+#: fails ("unknown ssl error"; "data between ccs and finished" at TLS
+#: 1.2), while with it off all succeed
+#: (``python -m demodel_tpu_torch.probes.mitm_ktls``)
+MITM_KTLS = "0"
+
+
+def _client(proxy_url: str, ca_file):
+    """A foreign client's opener: through the proxy, trusting ``ca_file``
+    (the proxy's CA) and nothing else."""
+    from demodel_tpu_torch.probes.mitm_ktls import ViaProxy
+
+    return urllib.request.build_opener(
+        ViaProxy(proxy_url), urllib.request.HTTPSHandler(
+            context=ssl.create_default_context(cafile=str(ca_file))))
+
+
+def _get_hashed(opener, req, chunk: int = 16 << 20) -> tuple[int, str]:
+    """(bytes, sha256) of the body of ``req``, hashed as it streams."""
+    import hashlib
+
+    sha, n = hashlib.sha256(), 0
+    with opener.open(req, timeout=600) as r:
+        while part := r.read(chunk):
+            sha.update(part)
+            n += len(part)
+    return n, sha.hexdigest()
+
+
+def _hf_download(opener, base: str, model: str, names, nbytes: int = 0
+                 ) -> dict[str, tuple[int, str]]:
+    """What ``huggingface-cli download`` does: each file on its own
+    thread (up to 8, ``snapshot_download``'s default), GET
+    ``resolve/main/{name}`` following the Hub's 302 to the CDN, with
+    ``Range: bytes=0-{nbytes - 1}`` where ``nbytes``; name → (bytes,
+    sha256)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def get(name):
+        req = urllib.request.Request(f"{base}/{model}/resolve/main/{name}")
+        if nbytes:
+            req.add_header("Range", f"bytes=0-{nbytes - 1}")
+        return _get_hashed(opener, req)
+
+    names = list(names)
+    with ThreadPoolExecutor(min(8, len(names))) as pool:
+        return dict(zip(names, pool.map(get, names)))
+
+
+def _v2_pull(opener, base: str, name_tag: str) -> dict:
+    """What ``ollama pull`` does against a registry-v2: the ping, a
+    bearer token where the registry challenges for one, the manifest,
+    then the config and every layer by digest, each held to its digest
+    and size. Returns the manifest."""
+    name, _, tag = name_tag.partition(":")
+    name = name if "/" in name else f"library/{name}"
+    headers = {}
+    try:
+        opener.open(f"{base}/v2/", timeout=60).close()
+    except urllib.error.HTTPError as e:
+        if e.code != 401:
+            raise
+        chal = dict(re.findall(r'(\w+)="([^"]*)"',
+                               e.headers.get("WWW-Authenticate", "")))
+        query = urllib.parse.urlencode(
+            {k: chal[k] for k in ("service", "scope") if k in chal})
+        with opener.open(f"{chal['realm']}?{query}", timeout=60) as r:
+            headers["Authorization"] = f"Bearer {json.load(r)['token']}"
+    req = urllib.request.Request(
+        f"{base}/v2/{name}/manifests/{tag or 'latest'}", headers={
+            **headers, "Accept":
+            "application/vnd.docker.distribution.manifest.v2+json"})
+    with opener.open(req, timeout=60) as r:
+        manifest = json.load(r)
+    for blob in [manifest["config"], *manifest["layers"]]:
+        n, sha = _get_hashed(opener, urllib.request.Request(
+            f"{base}/v2/{name}/blobs/{blob['digest']}", headers=headers))
+        if f"sha256:{sha}" != blob["digest"] or n != blob["size"]:
+            raise AssertionError(f"{name_tag}: blob {blob['digest']} came "
+                                 f"as {n} bytes hashing to {sha}")
+    return manifest
+
+
+def _serve_tls(handler, ctx: ssl.SSLContext) -> ThreadingHTTPServer:
+    server = ThreadingHTTPServer((MITM_HOST, 0), handler)
+    server.socket = ctx.wrap_socket(server.socket, server_side=True)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server
+
+
+def _await_keys(store, keys, deadline_s: float) -> float:
+    """Seconds until ``store`` holds every key of ``keys`` (the native
+    plane may commit after the client's last byte); raises past
+    ``deadline_s``."""
+    t0 = time.perf_counter()
+    while missing := [k for k in keys if not store.has(k)]:
+        if time.perf_counter() - t0 > deadline_s:
+            raise AssertionError(f"mitm: the store did not commit {missing} "
+                                 f"within {deadline_s} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _mitm_ollama(opener, store, proxy_url: str, base: str) -> tuple[dict,
+                                                                   dict]:
+    """The mitm phase's Ollama leg: ``_v2_pull`` of the gguf phase's
+    Q4_0 model through the proxy, the record synthesized from the store,
+    then ``pull_manifest_to_hbm(source="ollama")`` off the proxy onto the
+    card (K3 and K4e), every tensor equal to ``deliver_gguf`` of the
+    buffer. Returns its row and the dequant launches."""
+    import torch
+
+    from demodel_tpu_torch import delivery
+    from demodel_tpu_torch.ops import dequant as dq
+    from demodel_tpu_torch.sink import deliver_gguf, pull_manifest_to_hbm
+    from demodel_tpu_torch.store import key_for_uri
+
+    buf, specs = _GGUF_BUILT[MITM_GGUF_KIND]
+    name = OLLAMA_KINDS[MITM_GGUF_KIND]
+    repo, _, tag = name.partition(":")
+    t0 = time.perf_counter()
+    manifest = _v2_pull(opener, base, name)
+    fetch_s = time.perf_counter() - t0
+    v2 = f"{base}/v2/library/{repo}"
+    commit_s = _await_keys(store, [key_for_uri(f"{v2}/manifests/{tag}")] + [
+        key_for_uri(f"{v2}/blobs/{b['digest']}")
+        for b in [manifest["config"], *manifest["layers"]]], MITM_COMMIT_S)
+    record = delivery.synthesize_manifest(store, name, source="ollama")
+    if sorted(f["name"] for f in record["files"]) != sorted(
+            b["digest"].split(":")[1]
+            for b in [manifest["config"], *manifest["layers"]]):
+        raise AssertionError(f"mitm ollama: record {record}")
+    want = {f: 0 for f in DEQUANT_FORMATS}
+    for _, _, fmt in specs:
+        if fmt != "f32":
+            want[fmt] += 1
+    torch.cuda.synchronize()
+    for fmt in dq.launches:
+        dq.launches[fmt] = 0  # the placement's launches only
+    t1 = time.perf_counter()
+    report, placed = pull_manifest_to_hbm(name, [proxy_url], source="ollama")
+    place_s = time.perf_counter() - t1
+    launches = dict(dq.launches)
+    if launches != want:
+        raise AssertionError(f"mitm ollama: dequant launches {launches}, "
+                             f"expected {want}")
+    ref = deliver_gguf(None, name, out_dtype=torch.bfloat16, buffer=buf)
+    unequal = sorted(set(placed.arrays) ^ set(ref.arrays)) or [
+        n for n, a in placed.arrays.items()
+        if not (a.dtype == torch.bfloat16 and a.device.type == "cuda"
+                and torch.equal(a, ref.arrays[n]))]
+    if unequal:
+        raise AssertionError(f"mitm ollama: tensors differ from "
+                             f"deliver_gguf of the buffer: {unequal[:5]}")
+    row = {"model": name, "blob_bytes": len(buf), "fetch_s": fetch_s,
+           "commit_wait_s": commit_s, "place_s": place_s,
+           "network_bytes": report["network_bytes"],
+           "tensors_equal": len(placed.arrays),
+           "launches": {k: v for k, v in launches.items() if v}}
+    del placed, ref
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def phase_mitm(rig: _HubRig, pulled: dict) -> tuple[int, dict[str, int]]:
+    """The MITM front door: a foreign client warms a node through the
+    port's proxy, and the node places the model on the card.
+
+    The pull phase's checkpoint on a Hub over TLS and the gguf phase's
+    Q4_0 model on a registry-v2 over TLS (one CA and leaf from the port's
+    pki); the port's ``ProxyServer`` intercepting both with its own CA
+    (RSA, the default) and a store in the rig's directory. Gates: a
+    ``huggingface-cli``-shaped client through the proxy gets every file
+    byte-exact (sha256) over a leaf it verifies against the port's CA
+    alone, one leaf is minted for the host, the store commits every
+    resolve and CDN object whole, and a second pass (``config.json`` and
+    a 64 MiB Range of each shard) sends the Hub nothing; the record
+    ``synthesize_manifest`` builds lists every file with its size and
+    sha256, the LFS ones under synth keys, and ``/peer`` serves it; the
+    sharded leg off the proxy (``_sharded_leg``'s gates: tensors, bytes,
+    no fallback, tokens, K1 on ``wgmma_f16``); the Ollama leg
+    (``_mitm_ollama``); ``python -m demodel_tpu_torch.cli manifest``
+    prints the same record. Returns the K1 and dequant launches."""
+    import hashlib
+
+    from demodel_tpu_torch import delivery, pki
+    from demodel_tpu_torch.config import ProxyConfig
+    from demodel_tpu_torch.parallel.peer import PeerGossip
+    from demodel_tpu_torch.probes.mitm_ktls import origin_context
+    from demodel_tpu_torch.proxy import ProxyServer
+    from demodel_tpu_torch.sink.remote import fetch_manifest
+    from demodel_tpu_torch.store import key_for_uri
+
+    root = Path(rig.tmp) / "mitm"
+    ctx, upstream_ca = origin_context(root / "upstream-tls", MITM_HOST)
+    hub_handler = _hf_handler({PULL_MODEL: rig.files})
+    digests = hub_handler.digests[PULL_MODEL]
+    servers = [_serve_tls(hub_handler, ctx),
+               _serve_tls(_ollama_handler(*_ollama_models(
+                   [MITM_GGUF_KIND])), ctx)]
+    hub, reg = (f"https://{MITM_HOST}:{s.server_port}" for s in servers)
+    cfg = ProxyConfig(host="127.0.0.1", port=0, cache_dir=root / "cache",
+                      data_dir=root / "data", mitm_hosts=[
+                          u.split("//")[1] for u in (hub, reg)])
+    t0 = time.perf_counter()
+    pki.read_or_new_ca(cfg.data_dir, use_ecdsa=cfg.use_ecdsa)
+    ca_keygen_s = time.perf_counter() - t0
+    ktls = os.environ.get("DEMODEL_PROXY_KTLS")
+    os.environ["DEMODEL_PROXY_KTLS"] = MITM_KTLS  # read at start()
+    try:
+        proxy = ProxyServer(cfg, upstream_ca=str(upstream_ca),
+                            verbose=False, session_threads=8).start()
+    finally:
+        if ktls is None:
+            del os.environ["DEMODEL_PROXY_KTLS"]
+        else:
+            os.environ["DEMODEL_PROXY_KTLS"] = ktls
+    mints = []
+    mint = proxy._minter._mint  # noqa: SLF001 — timed, not changed
+
+    def timed_mint(host):
+        t = time.perf_counter()
+        out = mint(host)
+        mints.append((host, time.perf_counter() - t))
+        return out
+
+    proxy._minter._mint = timed_mint  # noqa: SLF001
+    store = delivery.open_store(cfg)
+    try:
+        opener = _client(proxy.url, pki.ca_paths(cfg.data_dir)[0])
+        names = sorted(rig.files)
+        shards = [n for n in names if n.endswith(".safetensors")]
+        t0 = time.perf_counter()
+        got = _hf_download(opener, hub, PULL_MODEL, names)
+        cold_s = time.perf_counter() - t0
+        bad = [n for n in names
+               if got[n] != (len(rig.files[n]), digests[n])]
+        if bad or [h for h, _ in mints] != [MITM_HOST]:
+            raise AssertionError(f"mitm: client bytes differ for {bad}, "
+                                 f"mints {mints}")
+        commit_s = _await_keys(store, [
+            key_for_uri(f"{hub}/{PULL_MODEL}/resolve/main/{n}")
+            for n in names] + [
+            key_for_uri(f"{hub}/cdn/{PULL_MODEL}/{digests[n]}")
+            for n in shards], MITM_COMMIT_S)
+        cached = {n: store.size(key_for_uri(
+            f"{hub}/cdn/{PULL_MODEL}/{digests[n]}")) for n in shards}
+        if cached != {n: len(rig.files[n]) for n in shards}:
+            raise AssertionError(f"mitm: shards cached as {cached}")
+
+        before = dict(hub_handler.counts)
+        warm = _hf_download(opener, hub, PULL_MODEL, ["config.json"])
+        warm.update(_hf_download(opener, hub, PULL_MODEL, shards,
+                                 nbytes=MITM_RANGE))
+        hub_warm = {k: hub_handler.counts[k] - before[k] for k in before}
+        heads = {n: memoryview(rig.files[n])[:MITM_RANGE] for n in shards}
+        want = {n: (len(h), hashlib.sha256(h).hexdigest())
+                for n, h in heads.items()}
+        want["config.json"] = got["config.json"]
+        if warm != want or any(hub_warm.values()):
+            raise AssertionError(f"mitm: warm pass {warm} vs {want}, Hub "
+                                 f"requests {hub_warm}")
+
+        t0 = time.perf_counter()
+        record = delivery.synthesize_manifest(store, PULL_MODEL)
+        synth_s = time.perf_counter() - t0
+        listed = {f["name"]: (f["size"], f["sha256"]) for f in
+                  record["files"]}
+        if listed != {n: (len(b), digests[n]) for n, b in rig.files.items()
+                      } or any(f["key"] != key_for_uri(
+                          f"demodel://synth/{PULL_MODEL}/{f['name']}")
+                          for f in record["files"]
+                          if f["name"] in shards):
+            raise AssertionError(f"mitm: synthesized record {record}")
+        if fetch_manifest([proxy.url], PULL_MODEL)[1] != record:
+            raise AssertionError("mitm: /peer serves another record")
+
+        k1, sharded = _sharded_leg(rig, pulled, proxy.url)
+        t0 = time.perf_counter()
+        ollama, dq_launches = _mitm_ollama(opener, store, proxy.url, reg)
+        ollama_s = time.perf_counter() - t0
+
+        out = subprocess.run(
+            [sys.executable, "-m", "demodel_tpu_torch.cli", "manifest",
+             PULL_MODEL], cwd=Path(__file__).resolve().parent,
+            env={**os.environ, "DEMODEL_CACHE_DIR": str(cfg.cache_dir),
+                 "DEMODEL_DATA_DIR": str(cfg.data_dir)},
+            capture_output=True, text=True, timeout=300)
+        if out.returncode != 0 or json.loads(out.stdout) != record:
+            raise AssertionError(f"mitm: cli manifest exit "
+                                 f"{out.returncode}: {out.stderr[-2000:]}")
+        served = proxy.metrics()
+    finally:
+        store.close()
+        PeerGossip.reset_shared()
+        proxy.stop()
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        _GGUF_BUILT.clear()
+    nbytes = sum(len(b) for b in rig.files.values())
+    _say("mitm", model=f"{PULL_MODEL} widths, {PULL_LAYERS} layers, f16",
+         openssl=pki.openssl_version(), ktls=MITM_KTLS,
+         ca_keygen_s=ca_keygen_s,
+         first_leaf_mint_s=mints[0][1], mints=len(mints),
+         cold_bytes=nbytes, cold_s=cold_s, cold_GBps=nbytes / cold_s / 1e9,
+         commit_wait_s=commit_s, warm_hub_requests=sum(hub_warm.values()),
+         synth_s=synth_s, proxy_mitm_connects=served.get("mitm"),
+         sharded={k: sharded[k] for k in (
+             "pull_s", "pull_GBps", "network_bytes", "phase_secs",
+             "window_fallbacks", "tokens", "k1_launches_by_kernel")},
+         ollama={**ollama, "leg_s": ollama_s},
+         k1_launches=k1, dequant_launches={k: v for k, v in
+                                           dq_launches.items() if v})
+    return k1, dq_launches
 
 
 def phase_tiny() -> dict[str, int]:
@@ -2497,6 +2869,10 @@ def main() -> int:
         k1["wgmma_f16"], pulled = phase_pull(rig)
         k1["wgmma_f16"] += phase_peer(rig, pulled)
         k1["wgmma_f16"] += phase_sharded(rig, pulled)
+        k1_mitm, dq_mitm = phase_mitm(rig, pulled)
+        k1["wgmma_f16"] += k1_mitm
+        for fmt, n in dq_mitm.items():
+            dq_launches[fmt] += n
         del pulled
     finally:
         rig.close()

@@ -1,6 +1,7 @@
 """Configuration: ``demodel_tpu/config.py``'s ``ProxyConfig`` — where the
-store lives, which CA verifies the upstream, and how the proxy listens
-and which hosts it would intercept — with the same defaults.
+store lives, which CA verifies the upstream, how the proxy listens and
+which hosts it intercepts — with the same defaults and the same
+``DEMODEL_*`` environment variables (:meth:`ProxyConfig.from_env`).
 
 Paths follow XDG: data (CA material) under
 ``$XDG_DATA_HOME/demodel-tpu``, cache (the store root) under
@@ -13,6 +14,8 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
+
+from demodel_tpu_torch.utils.env import env_bool, env_int
 
 
 def xdg_data_home() -> Path:
@@ -40,9 +43,9 @@ DEFAULT_MITM_HOSTS = ["huggingface.co:443"]
 class ProxyConfig:
     host: str = "0.0.0.0"
     port: int = 8080
-    #: the port's proxy serves peers only, so it requires no_mitm; the
-    #: MITM fields below are read by nothing until MITM lands with its
-    #: leaf minter (ROADMAP.md A14)
+    #: which CONNECT authorities the proxy intercepts: none under
+    #: ``no_mitm``, else all under ``mitm_all``, else the exact
+    #: ``host:port`` entries of ``mitm_hosts``
     mitm_all: bool = False
     no_mitm: bool = False
     mitm_hosts: list[str] = field(
@@ -57,3 +60,31 @@ class ProxyConfig:
     def __post_init__(self) -> None:
         self.data_dir = Path(self.data_dir)
         self.cache_dir = Path(self.cache_dir)
+
+    @classmethod
+    def from_env(cls) -> "ProxyConfig":
+        """The defaults, overridden by ``DEMODEL_PROXY_{HOST,PORT,
+        MITM_ALL,NO_MITM,CA_USE_ECDSA}``, ``DEMODEL_{DATA,CACHE}_DIR`` and
+        ``DEMODEL_UPSTREAM_CA``. ``DEMODEL_PROXY_MITM_HOSTS`` unset keeps
+        the default hosts, set replaces them (empty clears);
+        ``DEMODEL_PROXY_MITM_EXTRA_HOSTS`` always extends."""
+        cfg = cls(
+            host=os.environ.get("DEMODEL_PROXY_HOST", "0.0.0.0"),
+            port=env_int("DEMODEL_PROXY_PORT", 8080),
+            mitm_all=env_bool("DEMODEL_PROXY_MITM_ALL", False),
+            no_mitm=env_bool("DEMODEL_PROXY_NO_MITM", False),
+            use_ecdsa=env_bool("DEMODEL_PROXY_CA_USE_ECDSA", False),
+        )
+        hosts_env = os.environ.get("DEMODEL_PROXY_MITM_HOSTS")
+        if hosts_env is not None:
+            cfg.mitm_hosts = [h.strip() for h in hosts_env.split(",")
+                              if h.strip()]
+        extra = os.environ.get("DEMODEL_PROXY_MITM_EXTRA_HOSTS", "")
+        cfg.mitm_hosts += [h.strip() for h in extra.split(",") if h.strip()]
+        if "DEMODEL_DATA_DIR" in os.environ:
+            cfg.data_dir = Path(os.environ["DEMODEL_DATA_DIR"])
+        if "DEMODEL_CACHE_DIR" in os.environ:
+            cfg.cache_dir = Path(os.environ["DEMODEL_CACHE_DIR"])
+        if "DEMODEL_UPSTREAM_CA" in os.environ:
+            cfg.upstream_ca = os.environ["DEMODEL_UPSTREAM_CA"]
+        return cfg

@@ -166,6 +166,13 @@ class Store:
         except ValueError:
             return None
 
+    def is_private(self, key: str) -> bool:
+        """True when the entry is auth-scoped (cached for a credentialed
+        request): the native peer plane neither lists nor serves it
+        (``store.cc`` ``meta_is_private``)."""
+        meta = self.meta(key) or {}
+        return bool(meta.get("auth_scope"))
+
     def has_digest(self, digest: str) -> bool:
         return bool(self._lib.dm_store_has_digest(self._h, digest.encode()))
 

@@ -141,9 +141,18 @@ def test_ring_matches_reference(n_nodes):
 # ---------------------------------------------------------- the proxy
 
 
-def test_mitm_proxy_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TProxy(TConfig(no_mitm=False))
+def test_mitm_proxy_is_refused(tmp_path, monkeypatch):
+    """A MITM proxy where no libcrypto loads is refused at construction:
+    the port never falls back to tunnelling the hosts it should
+    intercept."""
+    from demodel_tpu_torch import pki as tpki
+
+    monkeypatch.setattr(tpki, "_lib", None)
+    monkeypatch.setattr(tpki, "SONAMES", ("libcrypto-absent.so.0",))
+    with pytest.raises(OSError, match="libcrypto not found"):
+        TProxy(TConfig(no_mitm=False, data_dir=tmp_path / "data",
+                       cache_dir=tmp_path / "cache"))
+    assert not (tmp_path / "data").exists()
 
 
 @pytest.mark.parametrize("server", ["port", "reference"])
