@@ -129,6 +129,22 @@ Phases, each printing one line:
    model, its record is synthesized and ``pull_manifest_to_hbm`` places
    it through K3 and K4e, equal to ``deliver_gguf`` of the buffer; and
    ``python -m demodel_tpu_torch.cli manifest`` prints the same record;
+10d. restore — the restore node: ``python -m demodel_tpu_torch.cli
+   serve`` in a child process over the pull phase's store (node A; its
+   ports read from its stderr line) and a ``RestoreServer`` in this
+   process over a fresh store (node B). A's manifest resolves from the
+   pull record (all 75 tensors, its native plane as ``data_endpoint``);
+   ``restore.client.restore`` from A places every tensor on the card,
+   equal to the pull phase's, the tensors' bytes fetched and A's
+   ``demodel_proxy_bytes_cache`` grown by as many; the model built from
+   it answers the pull phase's tokens over B's ``/generate`` (K1 on
+   ``wgmma_f16``) while A's answers 503; ``save_state_dict`` to B pushes
+   all 75 tensors, again none (0 bytes), and ``dcp.save`` through
+   ``HTTPStorageWriter`` under a second name sends 0 bytes; a restore
+   from B (its Python server) is equal; ``dcp.load`` through
+   ``HTTPStorageReader`` from A is equal; ``orbax_compat`` writes layers
+   0-1 as DCP files and reads them back onto the card, equal; SIGINT
+   stops A with exit 0 within 30 s; seconds and GB/s of each step;
 11. tiny — ``LlamaConfig.tiny()`` (head dim 8) in f32, bf16 and f16:
    served through K1 by default (f32 on ``tf32x3_f32``, bf16 and f16 on
    ``wgmma_*`` at padded head dim 64), engine tokens equal to
@@ -2182,17 +2198,21 @@ def _swarm_leg(rig: _HubRig, pulled: dict, url: str) -> dict:
     origin peer at ``url``; its row."""
     import torch
 
-    from demodel_tpu_torch.restore.server import RestoreServer
+    from demodel_tpu_torch.restore.server import (RestoreRegistry,
+                                                  RestoreServer)
     from demodel_tpu_torch.sink.remote import (SwarmScheduler,
                                                pull_manifest_to_hbm)
+    from demodel_tpu_torch.store import Store
     from demodel_tpu_torch.utils.metrics import HUB
 
     names = ("swarm_origin_bytes_total", "swarm_peer_bytes_total",
              "swarm_chunks_refetched_total", "swarm_chunks_reaped_total",
              "swarm_bytes_served_total")
     before = {k: HUB.get(k) for k in names}
-    servers = {h: RestoreServer(host="127.0.0.1").start()
-               for h in SWARM_HOSTS}
+    # a swarm host serves its board; its registry is empty
+    servers = {h: RestoreServer(RestoreRegistry(Store(
+        Path(rig.tmp) / f"swarm-{h}")), host="127.0.0.1").start()
+        for h in SWARM_HOSTS}
     parts = {h: f"http://127.0.0.1:{s.port}" for h, s in servers.items()}
     scheds = [SwarmScheduler("chip-smoke", h, parts) for h in SWARM_HOSTS]
     results: dict = {}
@@ -2222,6 +2242,7 @@ def _swarm_leg(rig: _HubRig, pulled: dict, url: str) -> dict:
             s.close()
         for srv in servers.values():
             srv.stop()
+            srv.registry.store.close()
     weight = _weight_bytes(rig)
     delta = {k: HUB.get(k) - before[k] for k in names}
     for host, (report, placed) in results.items():
@@ -2601,6 +2622,272 @@ def phase_mitm(rig: _HubRig, pulled: dict) -> tuple[int, dict[str, int]]:
     return k1, dq_launches
 
 
+# -------------------------------------------------------------- restore
+
+#: node A's stderr line naming its two ports (``cli.py`` ``_cmd_serve``)
+NODE_PORTS = re.compile(r"proxy\+peer on [^:]+:(\d+), restore API "
+                        r"\+ /metrics on [^:]+:(\d+)")
+#: how long node A may take to start, and to stop on SIGINT
+NODE_START_S = 120.0
+NODE_STOP_S = 30.0
+#: the layers the ``orbax_compat`` twin writes to disk and reads back
+DCP_FILE_LAYERS = ("model.layers.0.", "model.layers.1.")
+
+
+def _node_a(cfg) -> tuple[subprocess.Popen, str, str, list[str]]:
+    """``python -m demodel_tpu_torch.cli serve --restore-port 0`` over
+    ``cfg``'s store, proxy port 0 on 127.0.0.1, kTLS as the mitm phase
+    sets it (C5): the child, its proxy and restore URLs, and its stderr
+    lines (drained by a thread)."""
+    env = {**os.environ, "DEMODEL_CACHE_DIR": str(cfg.cache_dir),
+           "DEMODEL_DATA_DIR": str(cfg.data_dir),
+           "DEMODEL_PROXY_HOST": "127.0.0.1", "DEMODEL_PROXY_PORT": "0",
+           "DEMODEL_PROXY_KTLS": MITM_KTLS}
+    child = subprocess.Popen(
+        [sys.executable, "-m", "demodel_tpu_torch.cli", "serve",
+         "--restore-port", "0"], cwd=Path(__file__).resolve().parent,
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    lines: list[str] = []
+    seen = threading.Event()
+
+    def drain():
+        for line in child.stderr:
+            lines.append(line.rstrip())
+            if NODE_PORTS.search(line):
+                seen.set()
+        seen.set()
+
+    threading.Thread(target=drain, daemon=True).start()
+    found = seen.wait(NODE_START_S) and next(
+        (m for m in map(NODE_PORTS.search, lines) if m), None)
+    if not found:
+        child.kill()
+        child.wait(timeout=NODE_STOP_S)
+        raise AssertionError(f"restore: node A did not start: {lines[-20:]}")
+    proxy, api = (f"http://127.0.0.1:{p}" for p in found.groups())
+    return child, proxy, api, lines
+
+
+def _get(url: str, timeout: float = 60.0) -> bytes:
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read()
+
+
+def _scrape(url: str) -> dict[str, float]:
+    """The unlabeled samples of a ``/metrics`` page."""
+    out = {}
+    for line in _get(f"{url}/metrics").decode().splitlines():
+        parts = line.split()
+        if len(parts) == 2 and not line.startswith("#") and "{" not in line:
+            out[parts[0]] = float(parts[1])
+    return out
+
+
+def phase_restore(rig: _HubRig, pulled: dict) -> int:
+    """The restore node. Node A is the CLI's ``serve`` in a child process
+    over the pull phase's store (nothing registered; the model resolves
+    from its pull record); node B is a ``RestoreServer`` in this process
+    over a fresh store. Gates: A's manifest lists every tensor with its
+    native plane as ``data_endpoint``; ``restore`` from A puts every
+    tensor on the card equal to the pull phase's, ``bytes_fetched`` the
+    tensors' bytes, A's ``demodel_proxy_bytes_cache`` grown by at least
+    that; the model built from it (``load_llama_params``, ``serve.boot``)
+    answers the pull phase's tokens over B's ``/generate`` with K1 on
+    ``wgmma_f16``, while A's ``/generate`` answers 503; ``save_state_dict``
+    to B pushes every tensor, a second save none (0 bytes sent), and
+    ``dcp.save`` through ``HTTPStorageWriter`` under another name sends
+    0 bytes; ``restore`` from B (its Python server) is equal; ``dcp.load``
+    through ``HTTPStorageReader`` from A is equal; the ``orbax_compat``
+    twin round-trips layers 0-1 on the card; SIGINT stops A with exit 0.
+    Returns the K1 launches.
+
+    The parent holds no handle on the pull phase's store while A runs
+    (every earlier phase closed its own); A reads it and writes only its
+    pin markers, which its handles remove when they close."""
+    import dataclasses
+    import signal
+    import tempfile
+
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    from demodel_tpu_torch import serve
+    from demodel_tpu_torch.models.hf_loader import load_llama_params
+    from demodel_tpu_torch.models.llama import LlamaConfig
+    from demodel_tpu_torch.ops import flash_attention as fa
+    from demodel_tpu_torch.restore.client import restore
+    from demodel_tpu_torch.restore.orbax_compat import (load_placement,
+                                                        save_placement)
+    from demodel_tpu_torch.restore.orbax_http import (HTTPStorageReader,
+                                                      HTTPStorageWriter,
+                                                      save_state_dict)
+    from demodel_tpu_torch.restore.server import (RestoreRegistry,
+                                                  RestoreServer)
+    from demodel_tpu_torch.sink.hbm import Placement
+    from demodel_tpu_torch.store import Store
+    from demodel_tpu_torch.utils.env import restore_workers
+
+    want = pulled["placed"]
+    tensor_bytes = sum(t.numel() * t.element_size()
+                       for t in rig.src.values())
+    row: dict = {"workers": restore_workers(), "tensor_bytes": tensor_bytes}
+    t0 = time.perf_counter()
+    child, proxy, api, lines = _node_a(pulled["cfg"])
+    row["node_start_s"] = time.perf_counter() - t0
+    store_b = Store(Path(rig.tmp) / "restore-b" / "proxy")
+    node_b = RestoreServer(RestoreRegistry(store_b), host="127.0.0.1").start()
+    b_url = f"http://127.0.0.1:{node_b.port}"
+    engine = None
+    try:
+        if json.loads(_get(f"{api}/restore/models")) != {"models": []}:
+            raise AssertionError("restore: node A starts with models")
+        manifest = json.loads(_get(f"{api}/restore/{PULL_MODEL}/manifest"))
+        if sorted(manifest["tensors"]) != sorted(rig.src) or \
+                manifest.get("data_endpoint") != proxy:
+            raise AssertionError(f"restore: manifest lists "
+                                 f"{len(manifest['tensors'])} tensors, "
+                                 f"data_endpoint "
+                                 f"{manifest.get('data_endpoint')}")
+
+        # 2. restore onto the card, bytes off A's native plane
+        before = _scrape(api)
+        torch.cuda.synchronize()
+        res = restore(api, PULL_MODEL)
+        torch.cuda.synchronize()
+        after = _scrape(api)
+        native_bytes = after["demodel_proxy_bytes_cache"] - \
+            before["demodel_proxy_bytes_cache"]
+        unequal = _unequal(res.arrays, want)
+        if unequal or res.bytes_fetched != tensor_bytes:
+            raise AssertionError(f"restore: tensors differ {unequal[:5]}, "
+                                 f"bytes_fetched {res.bytes_fetched}")
+        if native_bytes < tensor_bytes or "demodel_store_objects" not in \
+                after:
+            raise AssertionError(f"restore: native plane served "
+                                 f"{native_bytes} bytes of {tensor_bytes}")
+        row.update(restore_s=res.secs, restore_GBps=tensor_bytes / res.secs
+                   / 1e9, native_bytes=native_bytes,
+                   store_objects=after["demodel_store_objects"],
+                   tensors_equal=len(res.arrays))
+
+        # 3. serve the restored model; /generate on A has no engine
+        config = json.loads(rig.files["config.json"])
+        mcfg = dataclasses.replace(LlamaConfig.from_hf(config),
+                                   dtype="float16")
+        torch.cuda.synchronize()
+        _reset_k1()  # the served request's launches only
+        t0 = time.perf_counter()
+        params = load_llama_params(res.arrays, mcfg, device="cuda")
+        engine = serve.boot(params, mcfg, device="cuda", kv_mb=1024,
+                            max_new_tokens=PULL_NEW, max_batch=4,
+                            queue_limit=8, model=PULL_MODEL)
+        tokens = _generate_http(f"{b_url}/generate", pulled["prompt"],
+                                PULL_NEW)
+        row["build_and_serve_s"] = time.perf_counter() - t0
+        by_kernel = dict(fa.launches_by_kernel)
+        engine.stop()
+        serve.install(None)
+        engine = None
+        del params
+        try:
+            _post(f"{api}/generate", {"prompt": pulled["prompt"]})
+            a_status = 200
+        except urllib.error.HTTPError as e:
+            a_status = e.code
+        launches = sum(by_kernel.values())
+        if tokens != pulled["tokens"] or a_status != 503:
+            raise AssertionError(f"restore: tokens {tokens} vs the pull "
+                                 f"phase's {pulled['tokens']}; node A's "
+                                 f"/generate answered {a_status}")
+        if launches != PULL_LAYERS or by_kernel["wgmma_f16"] != launches:
+            raise AssertionError(f"restore: K1 launches {by_kernel}, "
+                                 f"expected {PULL_LAYERS} on wgmma_f16")
+        row.update(tokens=tokens, node_a_generate=a_status,
+                   k1_launches_by_kernel=by_kernel)
+
+        # 4. save to B, twice, then through DCP; restore from B
+        saves = []
+        spans = ("save-serialize", "save-digest", "save-push")
+        for _ in range(2):
+            span0 = {k: _span_s(k) for k in spans}
+            t0 = time.perf_counter()
+            saves.append(save_state_dict(b_url, PULL_MODEL, res.arrays))
+            saves[-1]["secs"] = time.perf_counter() - t0
+            saves[-1]["span_s"] = {k: _span_s(k) - span0[k] for k in spans}
+        writer = HTTPStorageWriter(b_url, f"{PULL_MODEL}-dcp")
+        t0 = time.perf_counter()
+        dcp.save(res.arrays, storage_writer=writer, no_dist=True)
+        dcp_save_s = time.perf_counter() - t0
+        n = len(rig.src)
+        if (saves[0]["pushed"], saves[0]["skipped"]) != (n, 0) or (
+                saves[1]["pushed"], saves[1]["skipped"],
+                saves[1]["sent_bytes"]) != (0, n, 0) or (
+                writer.stats["pushed"], writer.stats["sent_bytes"]) != (0, 0):
+            raise AssertionError(f"restore: saves {saves}, dcp.save "
+                                 f"{writer.stats}")
+        res_b = restore(b_url, PULL_MODEL)
+        unequal = _unequal(res_b.arrays, want)
+        if unequal:
+            raise AssertionError(f"restore: node B's tensors differ "
+                                 f"{unequal[:5]}")
+        row.update(saves=saves, dcp_save_s=dcp_save_s,
+                   dcp_save=writer.stats, restore_b_s=res_b.secs,
+                   restore_b_GBps=tensor_bytes / res_b.secs / 1e9)
+        del res_b
+
+        # 5. dcp.load through A
+        sd = {k: torch.empty_like(t) for k, t in res.arrays.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dcp.load(sd, storage_reader=HTTPStorageReader(api, PULL_MODEL),
+                 no_dist=True)
+        torch.cuda.synchronize()
+        row["dcp_load_s"] = time.perf_counter() - t0
+        unequal = _unequal(sd, want)
+        if unequal:
+            raise AssertionError(f"restore: dcp.load differs {unequal[:5]}")
+        del sd
+
+        # 6. the orbax_compat twin: DCP files on disk, back to the card
+        part = {k: t for k, t in res.arrays.items()
+                if k.startswith(DCP_FILE_LAYERS)}
+        with tempfile.TemporaryDirectory(dir=rig.tmp) as d:
+            t0 = time.perf_counter()
+            save_placement(Placement(arrays=part), Path(d) / "ckpt")
+            back = load_placement(Path(d) / "ckpt", device="cuda")
+            row["dcp_files_s"] = time.perf_counter() - t0
+        unequal = _unequal(back.arrays, {k: want[k] for k in part})
+        if unequal:
+            raise AssertionError(f"restore: orbax_compat twin differs "
+                                 f"{unequal[:5]}")
+        row["dcp_files_tensors"] = len(back.arrays)
+        del back, part, res
+    finally:
+        if engine is not None:
+            engine.stop()
+            serve.install(None)
+        node_b.stop()
+        store_b.close()
+        # 7. SIGINT stops node A
+        t0 = time.perf_counter()
+        child.send_signal(signal.SIGINT)
+        try:
+            rc = child.wait(timeout=NODE_STOP_S)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait(timeout=NODE_STOP_S)
+            rc = None
+        row["node_stop_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"restore: node A exited {rc} on SIGINT: "
+                             f"{lines[-20:]}")
+    torch.cuda.empty_cache()
+    _say("restore", model=f"{PULL_MODEL} widths, {PULL_LAYERS} layers, f16",
+         **row)
+    return launches
+
+
 def phase_tiny() -> dict[str, int]:
     """``LlamaConfig.tiny()`` (head dim 8) on the card in f32, bf16 and
     f16. By default it is served through K1 (f32 on the 3xTF32
@@ -2871,6 +3158,7 @@ def main() -> int:
         k1["wgmma_f16"] += phase_sharded(rig, pulled)
         k1_mitm, dq_mitm = phase_mitm(rig, pulled)
         k1["wgmma_f16"] += k1_mitm
+        k1["wgmma_f16"] += phase_restore(rig, pulled)
         for fmt, n in dq_mitm.items():
             dq_launches[fmt] += n
         del pulled

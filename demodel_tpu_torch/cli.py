@@ -10,9 +10,11 @@
   card;
 - ``gc`` — evict the store to a size cap;
 - ``manifest`` — synthesize a model's manifest record from a
-  client-warmed proxy cache, so the node can seed sharded pulls.
+  client-warmed proxy cache, so the node can seed sharded pulls;
+- ``serve`` — the whole node: the proxy (with ``/peer`` and the native
+  tensor plane) and the ``/restore`` API, ``/metrics`` and ``/generate``
+  on ``--restore-port``, over one store.
 
-The restore node (``serve``) waits for the port's ``RestoreRegistry``.
 Configuration comes from the environment
 (:meth:`~demodel_tpu_torch.config.ProxyConfig.from_env`). Run as
 ``python -m demodel_tpu_torch.cli <command>``.
@@ -169,6 +171,40 @@ def _cmd_start(cfg: ProxyConfig, args) -> int:
     return 0
 
 
+def _cmd_serve(cfg: ProxyConfig, args) -> int:
+    """The full node: the proxy, and the restore API over the same store,
+    its tensor bytes served by the proxy's native plane."""
+    from demodel_tpu_torch.delivery import open_store
+    from demodel_tpu_torch.proxy import ProxyServer
+    from demodel_tpu_torch.restore.server import (RestoreRegistry,
+                                                  RestoreServer)
+
+    proxy = ProxyServer(cfg, session_threads=args.serve_threads,
+                        session_queue=args.serve_queue)
+    proxy.start()
+    store = restore = None
+    try:
+        store = open_store(cfg)
+        registry = RestoreRegistry(store)
+        registry.attach_native(proxy)
+        restore = RestoreServer(registry, host=cfg.host,
+                                port=args.restore_port, proxy=proxy)
+        restore.start()
+        print(f"demodel-tpu-torch node: proxy+peer on {cfg.host}:"
+              f"{proxy.port}, restore API + /metrics on {cfg.host}:"
+              f"{restore.port}", file=sys.stderr, flush=True)
+        proxy.wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if restore is not None:
+            restore.stop()
+        proxy.stop()
+        if store is not None:
+            store.close()
+    return 0
+
+
 def _cmd_pull(cfg: ProxyConfig, args) -> int:
     try:
         if args.sharded:
@@ -239,15 +275,18 @@ def build_parser() -> argparse.ArgumentParser:
         "starts the proxy.")
     sub = p.add_subparsers(dest="cmd")
     st = sub.add_parser("start", help="run the MITM caching proxy")
-    # the session pool: an explicit flag wins over DEMODEL_PROXY_THREADS /
-    # _QUEUE, then 2 × CPUs
-    st.add_argument("--serve-threads", type=int, default=None,
-                    help="session worker pool size "
-                         "(default: DEMODEL_PROXY_THREADS or 2×CPUs)")
-    st.add_argument("--serve-queue", type=int, default=None,
-                    help="accept-queue bound; overflow is answered 503 + "
-                         "Retry-After (default: DEMODEL_PROXY_QUEUE or "
-                         "4×pool)")
+    sv = sub.add_parser("serve", help="run proxy + peer + restore APIs")
+    sv.add_argument("--restore-port", type=int, default=8081)
+    for serving in (st, sv):
+        # the session pool: an explicit flag wins over
+        # DEMODEL_PROXY_THREADS / _QUEUE, then 2 × CPUs
+        serving.add_argument("--serve-threads", type=int, default=None,
+                             help="session worker pool size (default: "
+                                  "DEMODEL_PROXY_THREADS or 2×CPUs)")
+        serving.add_argument("--serve-queue", type=int, default=None,
+                             help="accept-queue bound; overflow is "
+                                  "answered 503 + Retry-After (default: "
+                                  "DEMODEL_PROXY_QUEUE or 4×pool)")
     sub.add_parser("init", help="create the root CA")
     e = sub.add_parser("export-ca", help="export/install the root CA")
     e.add_argument("--for", dest="for_", action="append", default=[],
@@ -287,7 +326,7 @@ def main(argv: list[str] | None = None) -> int:
     cfg = ProxyConfig.from_env()
     return {"init": _cmd_init, "export-ca": _cmd_export_ca,
             "pull": _cmd_pull, "gc": _cmd_gc, "manifest": _cmd_manifest,
-            }.get(args.cmd, _cmd_start)(cfg, args)
+            "serve": _cmd_serve}.get(args.cmd, _cmd_start)(cfg, args)
 
 
 if __name__ == "__main__":

@@ -121,14 +121,15 @@ def read_index_from(read_at, total_size: int | None = None) -> Index:
     return _parse_header_json(hdr, 8 + n, total_size)
 
 
-def serialize(tensors: dict[str, np.ndarray | torch.Tensor],
-              metadata: dict | None = None) -> bytes:
-    """Write a safetensors blob (sorted offsets, upstream-compatible).
-    Takes numpy arrays or CPU tensors (a tensor for bf16 or fp8)."""
+def serialize_parts(tensors: dict[str, np.ndarray | torch.Tensor],
+                    metadata: dict | None = None) -> list:
+    """The blob :func:`serialize` writes, as a list of buffers: the
+    length prefix and header, then each tensor's bytes, uncopied
+    (``memoryview`` s of contiguous CPU tensors or numpy arrays)."""
     header: dict = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
-    bodies: list[bytes] = []
+    bodies: list[memoryview] = []
     off = 0
     for name, arr in tensors.items():
         t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
@@ -137,16 +138,23 @@ def serialize(tensors: dict[str, np.ndarray | torch.Tensor],
             tag = _TAGS[t.dtype]
         except KeyError:
             raise ValueError(f"unsupported dtype {t.dtype!r}") from None
-        raw = t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+        raw = memoryview(t.contiguous().reshape(-1).view(torch.uint8).numpy())
         header[name] = {
             "dtype": tag,
             "shape": list(t.shape),
-            "data_offsets": [off, off + len(raw)],
+            "data_offsets": [off, off + raw.nbytes],
         }
         bodies.append(raw)
-        off += len(raw)
+        off += raw.nbytes
     hdr = json.dumps(header, separators=(",", ":")).encode()
     # upstream pads the header with spaces to 8-byte alignment
     pad = (8 - (len(hdr) % 8)) % 8
     hdr += b" " * pad
-    return struct.pack("<Q", len(hdr)) + hdr + b"".join(bodies)
+    return [struct.pack("<Q", len(hdr)) + hdr, *bodies]
+
+
+def serialize(tensors: dict[str, np.ndarray | torch.Tensor],
+              metadata: dict | None = None) -> bytes:
+    """Write a safetensors blob (sorted offsets, upstream-compatible).
+    Takes numpy arrays or CPU tensors (a tensor for bf16 or fp8)."""
+    return b"".join(serialize_parts(tensors, metadata))

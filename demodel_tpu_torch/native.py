@@ -127,6 +127,14 @@ def _configure(L: ctypes.CDLL) -> None:
     sig("dm_store_begin_ranged", P, [P, CP, I64, CP, I])
     sig("dm_store_list", I, [P, CP, I])
     sig("dm_store_gc", I64, [P, I64, c.POINTER(I64), c.POINTER(I)])
+    sig("dm_store_index_json", I, [P, CP, I])
+    sig("dm_store_evictions", I64, [P])
+    sig("dm_store_pin", None, [P, CP])
+    sig("dm_store_unpin", None, [P, CP])
+    # storage-fault plane: quarantine and the scrubber's slice
+    sig("dm_store_quarantine", I, [P, CP])
+    sig("dm_store_scrub", I, [P, I64, c.POINTER(I64), c.POINTER(I64),
+                              c.POINTER(I)])
     # streaming writer
     sig("dm_writer_append", I, [P, P, I64])
     sig("dm_writer_offset", I64, [P])
@@ -156,6 +164,10 @@ def _configure(L: ctypes.CDLL) -> None:
     sig("dm_proxy_stop", None, [P])
     sig("dm_proxy_free", None, [P])
     sig("dm_proxy_metrics", I, [P, CP, I])
+    # the native restore map (``GET /restore/{model}/tensor/{name}``)
+    sig("dm_proxy_register_tensor", None, [P, CP, CP, I64, I64])
+    sig("dm_proxy_unregister_model", None, [P, CP])
+    sig("dm_proxy_unregister_tensor", None, [P, CP])
 
 
 def lib() -> ctypes.CDLL:

@@ -10,8 +10,10 @@ the ``SSL_CTX`` natively. Responses are cached in the content-addressed
 store under ``cfg.cache_dir / "proxy"``; other authorities are tunnelled
 untouched. The same port serves the store to peers on ``/peer/index``,
 ``/peer/meta/{key}`` and ``/peer/object/{key}`` (range-aware), which is
-what :class:`~demodel_tpu_torch.parallel.peer.PeerSet` reads. A
-``no_mitm`` node intercepts nothing and needs no PKI.
+what :class:`~demodel_tpu_torch.parallel.peer.PeerSet` reads, and
+``/restore/{model}/tensor/{name}`` (range-aware) for the tensors a
+restore registry mirrors into it (:meth:`ProxyServer.register_tensor`).
+A ``no_mitm`` node intercepts nothing and needs no PKI.
 """
 
 from __future__ import annotations
@@ -137,6 +139,28 @@ class ProxyServer:
         host = "127.0.0.1" if self.cfg.host in ("0.0.0.0", "") else \
             self.cfg.host
         return f"http://{host}:{self.port}"
+
+    def register_tensor(self, model: str, tensor: str, key: str,
+                        start: int, nbytes: int) -> None:
+        """Serve the byte window ``[start, start + nbytes)`` of stored
+        object ``key`` as ``GET /restore/{model}/tensor/{tensor}`` on the
+        proxy port (Range-aware, by sendfile). The entry pins ``key`` in
+        the plane's own store; a same-name entry is replaced atomically."""
+        self._lib.dm_proxy_register_tensor(
+            self._h, f"{model}/{tensor}".encode(), key.encode(), start,
+            nbytes)
+
+    def unregister_model(self, model: str) -> None:
+        """Drop every ``model/*`` entry and its pin (full teardown). A
+        re-registration registers the new set and then drops the stale
+        names with :meth:`unregister_tensor` instead, so kept tensors
+        never 404."""
+        self._lib.dm_proxy_unregister_model(self._h, model.encode())
+
+    def unregister_tensor(self, model: str, tensor: str) -> None:
+        """Drop one entry and its pin."""
+        self._lib.dm_proxy_unregister_tensor(
+            self._h, f"{model}/{tensor}".encode())
 
     def metrics(self) -> dict:
         """The native plane's counters (``mitm``, ``serve_bytes_total``

@@ -1,2 +1,4 @@
-"""Restore plane of the port (``demodel_tpu/restore``): so far the swarm's
-serve surface only (:mod:`demodel_tpu_torch.restore.server`)."""
+"""Restore plane of the port (``demodel_tpu/restore``): the node's
+``/restore`` server and registry (:mod:`~.server`), network restore onto
+the device (:mod:`~.client`), DCP over the node (:mod:`~.orbax_http`) and
+DCP files on disk (:mod:`~.orbax_compat`)."""

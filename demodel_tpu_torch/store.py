@@ -182,6 +182,15 @@ class Store:
         self._lib.dm_store_list(self._h, buf, n + 1)
         return [k for k in buf.value.decode().split("\n") if k]
 
+    def index(self) -> dict:
+        """The ``/peer/index`` document (public objects only: ``keys``,
+        each with ``key``, ``size`` and ``sha256``), as the native proxy
+        serves it."""
+        n = self._lib.dm_store_index_json(self._h, None, 0)
+        buf = ctypes.create_string_buffer(n + 1)
+        self._lib.dm_store_index_json(self._h, buf, n + 1)
+        return json.loads(buf.value.decode())
+
     # -- reads -----------------------------------------------------------
     def pread(self, key: str, length: int, offset: int) -> bytes:
         _fault("pread", key, length=length, offset=offset)
@@ -265,6 +274,41 @@ class Store:
             _m.HUB.inc("store_evictions_total", count.value)
             _m.HUB.inc("store_evicted_bytes_total", freed.value)
         return total, freed.value, count.value
+
+    def evictions_total(self) -> int:
+        """Objects :meth:`gc` evicted through this handle."""
+        return self._lib.dm_store_evictions(self._h)
+
+    def pin(self, key: str) -> None:
+        """Shield ``key`` from :meth:`gc` eviction. Pins are refcounted
+        per handle, and each handle's first pin of a key leaves a marker
+        that a GC through another handle or process honours."""
+        self._lib.dm_store_pin(self._h, key.encode())
+
+    def unpin(self, key: str) -> None:
+        self._lib.dm_store_unpin(self._h, key.encode())
+
+    def quarantine(self, key: str) -> bool:
+        """Move a committed object out of the addressable namespace into
+        ``quarantine/`` (EIO or a digest mismatch on read): the next
+        request for it is a clean miss. True when it was quarantined."""
+        rc = self._lib.dm_store_quarantine(self._h, key.encode())
+        if rc == 0:
+            _m.HUB.inc("store_quarantined_total")
+        return rc == 0
+
+    def scrub(self, max_bytes: int) -> tuple[bool, int, int, int]:
+        """One bounded scrub slice: re-digest up to ``max_bytes`` of
+        committed objects from the saved cursor, quarantining each whose
+        bytes no longer hash to its recorded sha256. Returns ``(wrapped,
+        objects, bytes, mismatched)``; ``wrapped`` when the slice
+        finished a full walk."""
+        objs = ctypes.c_int64(0)
+        nbytes = ctypes.c_int64(0)
+        mism = ctypes.c_int(0)
+        rc = self._lib.dm_store_scrub(self._h, max_bytes, ctypes.byref(objs),
+                                      ctypes.byref(nbytes), ctypes.byref(mism))
+        return bool(rc), objs.value, nbytes.value, mism.value
 
     def materialize(self, key: str, digest: str, meta: dict) -> None:
         """Publish already-stored bytes (located by content digest) under a

@@ -162,3 +162,29 @@ def default_tier_ram_mb() -> int:
     """``DEMODEL_TIER_RAM_MB``: the host-RAM tier's byte budget in MB,
     which swarm chunk boards charge."""
     return env_int("DEMODEL_TIER_RAM_MB", 256, minimum=1)
+
+
+def restore_workers() -> int:
+    """``DEMODEL_RESTORE_WORKERS``: tensors a network restore fetches and
+    places at once (8)."""
+    return env_int("DEMODEL_RESTORE_WORKERS", 8, minimum=1)
+
+
+def advertise_host() -> str | None:
+    """``DEMODEL_ADVERTISE_HOST``: the name (``h``, ``h:p``, an IPv6
+    literal bare or bracketed, with or without a port) a restore node
+    advertises as its tensor data endpoint; None when unset."""
+    return os.environ.get("DEMODEL_ADVERTISE_HOST", "").strip() or None
+
+
+def scrub_interval_secs() -> int:
+    """``DEMODEL_SCRUB_INTERVAL_SECS``: seconds between background
+    scrubber slices re-digesting committed objects (0, the default,
+    disables the scrubber on both planes)."""
+    return env_int("DEMODEL_SCRUB_INTERVAL_SECS", 0, minimum=0)
+
+
+def scrub_rate_mb_s() -> int:
+    """``DEMODEL_SCRUB_RATE_MB_S``: the scrubber's re-digest budget in MB
+    per second; each slice reads at most ``rate × interval`` bytes."""
+    return env_int("DEMODEL_SCRUB_RATE_MB_S", 8, minimum=1)

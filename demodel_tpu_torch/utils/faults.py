@@ -211,8 +211,10 @@ class HTTPClient:
     def __init__(self, ca: str | None = None,
                  headers: dict[str, str] | None = None):
         self.headers = dict(headers or {})
-        self._ctx = ssl.create_default_context(cafile=ca) if ca else \
-            ssl.create_default_context()
+        self._ca = ca
+        #: made at the first https connection: loading the CA bundle
+        #: takes tens of ms, and most clients speak plain http
+        self._ctx: ssl.SSLContext | None = None
         self._tls = threading.local()
         self._lock = threading.Lock()
         self._opened: list[http.client.HTTPConnection] = []
@@ -223,8 +225,12 @@ class HTTPClient:
     def _new_conn(self, scheme: str, host: str, port: int,
                   timeout: float) -> http.client.HTTPConnection:
         if scheme == "https":
+            with self._lock:
+                if self._ctx is None:
+                    self._ctx = ssl.create_default_context(cafile=self._ca)
+                ctx = self._ctx
             conn = http.client.HTTPSConnection(host, port, timeout=timeout,
-                                               context=self._ctx)
+                                               context=ctx)
         else:
             conn = http.client.HTTPConnection(host, port, timeout=timeout)
         with self._lock:
@@ -232,7 +238,7 @@ class HTTPClient:
         return conn
 
     def _once(self, method: str, url: str, headers: dict[str, str],
-              timeout: float) -> Response:
+              timeout: float, body=None) -> Response:
         parts = urlsplit(url)
         if parts.scheme not in ("http", "https") or not parts.hostname:
             raise ValueError(f"unsupported URL {url!r}")
@@ -247,7 +253,7 @@ class HTTPClient:
             if conn is None:
                 conn = self._new_conn(*key, timeout)
             try:
-                conn.request(method, path, headers=headers)
+                conn.request(method, path, body=body, headers=headers)
                 raw = conn.getresponse()
                 break
             except _STALE:
@@ -272,14 +278,15 @@ class HTTPClient:
 
     def request(self, method: str, url: str, *,
                 headers: dict[str, str] | None = None, timeout: float = 60,
-                allow_redirects: bool = True,
-                stream: bool = False) -> Response:
-        """One request (redirects followed when asked). The body is read
-        whole unless ``stream``; a streamed body must be iterated or
-        closed."""
+                allow_redirects: bool = True, stream: bool = False,
+                body=None) -> Response:
+        """One request (redirects followed when asked), sending ``body``
+        when given: bytes, or a list of buffers sent in turn (give its
+        ``Content-Length`` in ``headers``). The answer's body is read whole unless ``stream``; a
+        streamed body must be iterated or closed."""
         hdrs = {**self.headers, **(headers or {})}
         for _ in range(self.MAX_REDIRECTS + 1):
-            r = self._once(method, url, hdrs, timeout)
+            r = self._once(method, url, hdrs, timeout, body)
             location = r.headers.get("Location")
             if not (allow_redirects and location
                     and r.status_code in (301, 302, 303, 307, 308)):
@@ -287,7 +294,7 @@ class HTTPClient:
             r.content  # drained, so the connection is reused
             url = urljoin(url, location)
             if r.status_code == 303 and method != "HEAD":
-                method = "GET"
+                method, body = "GET", None
         else:
             raise WireError(f"more than {self.MAX_REDIRECTS} redirects")
         if not stream:

@@ -4,7 +4,8 @@ The part of ``demodel_tpu.utils.metrics`` the serving and pull planes
 use: :data:`HUB` (``inc`` / ``set_gauge`` / ``observe``), :func:`labeled`,
 the log-bucketed :class:`Histogram` (×2 per bucket from 100 µs to ~52 s,
 the same ``le`` schedule as the JAX plane), :func:`render` for
-``/metrics``, and the :class:`Telemetry` ring of snapshots whose
+``/metrics`` (with the native proxy's counters and the store's gauges
+when given), and the :class:`Telemetry` ring of snapshots whose
 windowed rates and quantiles the pull tuner reads.
 """
 
@@ -187,28 +188,82 @@ def _with_label(name: str, key: str, value: str) -> str:
     return f'{base}{{{key}="{value}"}}'
 
 
-def render() -> str:
-    """Prometheus text exposition (0.0.4) of :data:`HUB` as
-    ``demodel_<name>``: counters, gauges, then cumulative histogram
-    ``_bucket``/``_sum``/``_count`` series."""
+#: native proxy counters that are gauges (levels, not running totals)
+PROXY_GAUGES = frozenset({"sessions_active", "sessions_queue_depth",
+                          "sessions_parked", "conns_writing",
+                          "tunnels_spliced", "store_degraded"})
+
+
+def _emit_hist(lines: list[str], prefix: str, name: str,
+               le: Sequence[float], counts: Sequence[int], total_sum: float,
+               count: int, typed: set[str]) -> None:
+    """One histogram series: cumulative ``_bucket`` samples (one per
+    bound, then ``+Inf``), ``_sum`` and ``_count``; one ``# TYPE`` line
+    per base name across its labeled series."""
+    base = name.split("{", 1)[0]
+    labels = name[len(base):]
+    if prefix + base not in typed:
+        typed.add(prefix + base)
+        lines.append(f"# TYPE {prefix}{base} histogram")
+    cum = 0
+    for bound, n in zip([*le, float("inf")], counts):
+        cum += int(n)
+        sample = _with_label(f"{base}_bucket{labels}", "le", le_str(bound))
+        lines.append(f"{prefix}{sample} {cum}")
+    lines.append(f"{prefix}{base}_sum{labels} {_fmt(float(total_sum))}")
+    lines.append(f"{prefix}{base}_count{labels} {count}")
+
+
+def render(proxy: Any = None, store: Any = None) -> str:
+    """Prometheus text exposition (0.0.4): :data:`HUB` as
+    ``demodel_<name>`` (counters, gauges, then cumulative histograms);
+    with ``proxy``, the native plane's counters and per-route histograms
+    as ``demodel_proxy_<name>``; with ``store``, the gauges
+    ``demodel_store_{objects,bytes}`` and the counter
+    ``demodel_store_evictions_total``."""
     lines: list[str] = []
     _emit(lines, HUB.snapshot(), "counter")
     _emit(lines, HUB.gauges(), "gauge")
     typed: set[str] = set()
     for name, h in sorted(HUB.histograms().items()):
-        base = name.split("{", 1)[0]
-        labels = name[len(base):]
-        if base not in typed:
-            typed.add(base)
-            lines.append(f"# TYPE demodel_{base} histogram")
-        cum = 0
-        for bound, n in zip([*h["le"], float("inf")], h["counts"]):
-            cum += int(n)
-            sample = _with_label(f"{base}_bucket{labels}", "le",
-                                 le_str(bound))
-            lines.append(f"demodel_{sample} {cum}")
-        lines.append(f"demodel_{base}_sum{labels} {_fmt(float(h['sum']))}")
-        lines.append(f"demodel_{base}_count{labels} {h['count']}")
+        _emit_hist(lines, "demodel_", name, h["le"], h["counts"], h["sum"],
+                   h["count"], typed)
+    if proxy is not None:
+        try:
+            native = proxy.metrics()
+        except Exception as e:  # noqa: BLE001 — a scrape must not take
+            # the node down
+            log.debug("native proxy metrics unavailable: %s", e)
+            native = {}
+        hists = native.pop("hist", None)
+        for name, value in sorted(native.items()):
+            if not isinstance(value, (int, float)):
+                continue  # structured sub-documents are not samples
+            mtype = "gauge" if name in PROXY_GAUGES else "counter"
+            lines.append(f"# TYPE demodel_proxy_{name} {mtype}")
+            lines.append(f"demodel_proxy_{name} {_fmt(value)}")
+        if isinstance(hists, dict):
+            for family, spec in sorted(hists.items()):
+                for route, h in sorted(spec.get("routes", {}).items()):
+                    _emit_hist(lines, "demodel_proxy_",
+                               labeled(family, route=route),
+                               spec.get("le", []), h.get("counts", []),
+                               h.get("sum", 0.0), int(h.get("count", 0)),
+                               typed)
+    if store is not None:
+        try:
+            idx = store.index().get("keys", [])
+            evictions = store.evictions_total()
+        except (OSError, ValueError) as e:
+            log.debug("store gauges unavailable: %s", e)
+        else:
+            lines += ["# TYPE demodel_store_objects gauge",
+                      f"demodel_store_objects {len(idx)}",
+                      "# TYPE demodel_store_bytes gauge",
+                      f"demodel_store_bytes "
+                      f"{sum(e.get('size', 0) for e in idx)}",
+                      "# TYPE demodel_store_evictions_total counter",
+                      f"demodel_store_evictions_total {evictions}"]
     return "\n".join(lines) + "\n"
 
 

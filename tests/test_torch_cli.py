@@ -18,6 +18,7 @@ import sys
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -167,8 +168,8 @@ def test_manifest_in_a_subprocess(env):
 
 def test_pull_and_gc_refusals(env, capsys):
     """Without a card the CUDA sinks raise (exit 1, nothing placed on the
-    CPU); ``--sharded`` needs a peer; ``gc`` needs a cap; ``serve`` waits
-    for the port's restore registry."""
+    CPU); ``--sharded`` needs a peer; ``gc`` needs a cap; ``serve``
+    parses as the reference's does."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert tcli.main(["pull", "org/m", "--sink", "cuda"]) == 1
@@ -178,8 +179,77 @@ def test_pull_and_gc_refusals(env, capsys):
     assert "CUDA device requested" in capsys.readouterr().err
     assert tcli.main(["pull", "org/m", "--sharded"]) == 2
     assert tcli.main(["gc"]) == 2
-    with pytest.raises(SystemExit):
-        tcli.build_parser().parse_args(["serve"])
+    for argv in (["serve"], ["serve", "--restore-port", "0",
+                             "--serve-threads", "2", "--serve-queue", "8"]):
+        got, want = (vars(m.build_parser().parse_args(argv))
+                     for m in (tcli, jcli))
+        assert got == want
+
+
+def test_serve_node_in_a_subprocess(env):
+    """``python -m demodel_tpu_torch.cli serve``: one stderr line names
+    both ports; ``/restore/models`` is empty until the manifest request
+    resolves the pulled model from its record; a tensor comes from the
+    proxy port; ``/generate`` answers 503; SIGINT ends it with exit 0."""
+    import queue
+    import re
+    import signal
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from demodel_tpu_torch import delivery as tdelivery
+
+    from .fake_registries import build_hf_repo, make_hf_handler
+    from .servers import FakeUpstream
+
+    repo = build_hf_repo(n_shards=2)
+    with FakeUpstream(handler=make_hf_handler({"org/m": repo})) as up:
+        tdelivery.pull("org/m", TConfig(cache_dir=env / "cache",
+                                        data_dir=env / "data"),
+                       endpoint=f"http://{up.authority}")
+    child = subprocess.Popen(
+        [sys.executable, "-m", "demodel_tpu_torch.cli", "serve",
+         "--restore-port", "0", "--serve-threads", "2"],
+        cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "PYTHONPATH": str(REPO),
+                        "DEMODEL_PROXY_HOST": "127.0.0.1",
+                        "DEMODEL_PROXY_PORT": "0"})
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in child.stderr],
+                     daemon=True).start()
+    try:
+        ports = None
+        while ports is None:
+            line = lines.get(timeout=60)
+            ports = re.search(r"proxy\+peer on [^:]+:(\d+), restore API "
+                              r"\+ /metrics on [^:]+:(\d+)", line)
+        proxy, api = (f"http://127.0.0.1:{p}" for p in ports.groups())
+
+        def get(url):
+            with urllib.request.urlopen(url, timeout=30) as r:
+                return r.read()
+
+        assert json.loads(get(f"{api}/restore/models")) == {"models": []}
+        manifest = json.loads(get(f"{api}/restore/org/m/manifest"))
+        assert manifest["data_endpoint"] == proxy
+        assert json.loads(get(f"{api}/restore/models")) == {
+            "models": ["org/m"]}
+        w = np.frombuffer(get(f"{proxy}/restore/org/m/tensor/layer.1.w"),
+                          np.float32)
+        assert w.size == 64 * 64 and manifest["tensors"]["layer.1.w"][
+            "nbytes"] == w.nbytes
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(urllib.request.Request(
+                f"{api}/generate", data=b'{"prompt":[1]}', method="POST"),
+                timeout=30)
+        assert ei.value.code == 503
+        child.send_signal(signal.SIGINT)
+        assert child.wait(timeout=30) == 0
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
 
 
 def test_gc_evicts_to_the_cap(env, capsys):

@@ -14,6 +14,7 @@ host (the reference's scheduler and server) with a port host.
 from __future__ import annotations
 
 import hashlib
+import json
 import threading
 import time
 import urllib.error
@@ -33,6 +34,7 @@ from demodel_tpu_torch.parallel import make_mesh
 from demodel_tpu_torch.parallel import peer as tpeer
 from demodel_tpu_torch.parallel import placement as tplacement
 from demodel_tpu_torch.proxy import ProxyServer as TProxy
+from demodel_tpu_torch.restore.server import RestoreRegistry as TRegistry
 from demodel_tpu_torch.restore.server import RestoreServer as TRestore
 from demodel_tpu_torch.sink import remote as tremote
 from demodel_tpu_torch.store import Store as TStore
@@ -243,8 +245,14 @@ def _seed_origin(tmp_path, n_files=2, mb=3, tag="sw"):
     return TProxy(cfg, session_threads=4).start(), files
 
 
-def _servers(host_ids):
-    servers = {h: TRestore(host="127.0.0.1").start() for h in host_ids}
+def _board_server(root) -> TRestore:
+    """A swarm host's serve surface: a ``RestoreServer`` over an empty
+    registry (its store is closed by :func:`_close`)."""
+    return TRestore(TRegistry(TStore(root)), host="127.0.0.1").start()
+
+
+def _servers(tmp_path, host_ids):
+    servers = {h: _board_server(tmp_path / f"board-{h}") for h in host_ids}
     return servers, {h: f"http://127.0.0.1:{s.port}"
                      for h, s in servers.items()}
 
@@ -254,6 +262,7 @@ def _close(scheds, servers):
         s.close()
     for srv in servers:
         srv.stop()
+        srv.registry.store.close()
 
 
 def _read_all(s, files) -> dict:
@@ -290,7 +299,7 @@ def test_three_host_swarm_disjoint_origin_and_exact_bytes(tmp_path):
     copies travel peer to peer, every host ends bytes-exact, and the
     serve surface counts what it served."""
     origin, files = _seed_origin(tmp_path)
-    servers, parts = _servers(("hA", "hB", "hC"))
+    servers, parts = _servers(tmp_path, ("hA", "hB", "hC"))
     scheds = []
     try:
         for hid in parts:
@@ -325,7 +334,7 @@ def test_dead_host_chunks_reowned_not_repulled(tmp_path):
     """A host in the ring that never answers: its owned chunks are
     re-sourced by ring successors once each; origin bytes stay 1×."""
     origin, files = _seed_origin(tmp_path, n_files=1, mb=6, tag="dead")
-    servers, parts = _servers(("hA", "hB"))
+    servers, parts = _servers(tmp_path, ("hA", "hB"))
     parts = dict(parts, hC="http://127.0.0.1:9")
     scheds = []
     try:
@@ -363,7 +372,7 @@ def test_reaper_frees_boards_and_reaped_chunks_reread(tmp_path):
     re-lands it from origin bytes-exact without condemning the
     sibling."""
     origin, files = _seed_origin(tmp_path, n_files=1, mb=3, tag="reap")
-    servers, parts = _servers(("hA", "hB"))
+    servers, parts = _servers(tmp_path, ("hA", "hB"))
     scheds = []
     try:
         for hid in parts:
@@ -400,14 +409,20 @@ def test_reaper_frees_boards_and_reaped_chunks_reread(tmp_path):
         origin.stop()
 
 
-def test_swarm_routes_404_without_a_board():
-    with TRestore(host="127.0.0.1") as srv:
-        for path in ("/swarm/nope/h1/chunks", "/swarm/nope/h1/chunk/k/0",
-                     "/restore/models"):
+def test_swarm_routes_404_without_a_board(tmp_path):
+    """No board: the swarm routes 404; an empty registry lists no
+    models."""
+    with TStore(tmp_path / "s") as store, \
+            TRestore(TRegistry(store), host="127.0.0.1") as srv:
+        for path in ("/swarm/nope/h1/chunks", "/swarm/nope/h1/chunk/k/0"):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 urllib.request.urlopen(
                     f"http://127.0.0.1:{srv.port}{path}", timeout=5)
             assert ei.value.code == 404
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/restore/models",
+                timeout=5) as r:
+            assert (r.status, json.loads(r.read())) == (200, {"models": []})
 
 
 def test_mixed_swarm_of_a_jax_host_and_a_port_host(tmp_path):
@@ -422,7 +437,7 @@ def test_mixed_swarm_of_a_jax_host_and_a_port_host(tmp_path):
     origin, files = _seed_origin(tmp_path, n_files=2, mb=3, tag="mix")
     jstore = JStore(tmp_path / "mix-j")
     jsrv = JRestore(RestoreRegistry(jstore), host="127.0.0.1").start()
-    tsrv = TRestore(host="127.0.0.1").start()
+    tsrv = _board_server(tmp_path / "mix-t")
     parts = {"hJ": f"http://127.0.0.1:{jsrv.port}",
              "hT": f"http://127.0.0.1:{tsrv.port}"}
     scheds = []
@@ -452,7 +467,6 @@ def test_mixed_swarm_of_a_jax_host_and_a_port_host(tmp_path):
             js.stats()["chunks_refetched"] == 0
     finally:
         _close(scheds, [jsrv, tsrv])
-        jstore.close()
         origin.stop()
 
 
@@ -466,7 +480,7 @@ def test_swarm_pull_places_exact_with_1x_origin(tmp_path, monkeypatch):
         tensors, files, weight = _seed_store(store, "swp", 3, 0)
     cfg = TConfig(host="127.0.0.1", port=0, no_mitm=True, cache_dir=path,
                   data_dir=tmp_path / "swp-data")
-    servers, parts = _servers(("hA", "hB"))
+    servers, parts = _servers(tmp_path, ("hA", "hB"))
     scheds = [tremote.SwarmScheduler("tswp", h, parts) for h in parts]
     results: dict = {}
     errors: list = []
