@@ -31,9 +31,11 @@ Phases, each printing one line:
    Sq > kv_len, non-causal, no keys at all, D=64, strided and misaligned
    k/v views, f32, return_lse), f16 at 17, 512 and 2048, f32 at D=128
    (S=512 and 2048, and the strided views), head dims 8, 32, 80, 96 and
-   256 (S=512, H=32, G=8) and the tiny config's prefill shape in f32,
-   bf16 and f16, OpenLLaMA-3B's D=100 at H=G=32 in bf16, f16 and f32 at
-   S=512 and 2048, from a view of its KV cache, and with GQA (the padded
+   256 (S=512, H=32, G=8), GPT-2's and BERT's D=64 at H=G=12 (S=512,
+   causal and bidirectional, f32 and bf16) and the tiny config's prefill
+   shape in f32, bf16 and f16, OpenLLaMA-3B's D=100 at H=G=32 in bf16,
+   f16 and f32 at S=512 and 2048, from a view of its KV cache, and with
+   GQA (the padded
    copy), odd head dims (D=99 through the row map in bf16 and f16, by
    4-byte copies in f32; D=33 from views padded to 40) in bf16 and f16,
    each with the call time
@@ -149,7 +151,9 @@ Phases, each printing one line:
    served through K1 by default (f32 on ``tf32x3_f32``, bf16 and f16 on
    ``wgmma_*`` at padded head dim 64), engine tokens equal to
    ``generate``; under the caller's explicit ``DEMODEL_FLASH_ATTN=0``
-   served on the einsum path with no K1 launch;
+   served on the einsum path with no K1 launch; sampled ``generate``
+   (temperature 1) equal under equal seeded CUDA generators, temperature
+   0 equal to greedy;
 12. openllama — OpenLLaMA-3B's widths (its ``config.json``: hidden 3200,
    32 heads of 100, 26 layers, intermediate 8640; seeded random
    weights) on the card, in f16 (6.85 GB) and then in f32 (13.7 GB, as
@@ -159,7 +163,30 @@ Phases, each printing one line:
    prefills' device time, then ``serve.boot`` and prompts of 17, 128 and
    512 tokens over HTTP with first tokens the argmax of their kernel-path
    logits and all 78 K1 launches of a leg on ``wgmma_f16`` or
-   ``tf32x3_f32``.
+   ``tf32x3_f32``;
+13. families — GPT-2 and BERT at their published widths
+   (``openai-community/gpt2``, ``google-bert/bert-base-uncased``; F32
+   checkpoints of seeded weights under HF names) pulled cold from the
+   in-script Hub through the port's store and built by
+   ``model_from_pull`` on the card: every placed tensor equal to its
+   source; GPT-2 ``forward`` (B=2, T=1024, causal) and BERT ``encode``
+   (B=4, T=512, bidirectional) through K1 at head dim 64, 12 launches a
+   forward, in f32 (``tf32x3_f32``) and cast to bf16 (``wgmma_bf16``),
+   each against the plain path (f32 within 2e-4 of the largest value,
+   bf16 within 2e-2 relative L2); BERT with a right-padded mask on the
+   einsum path, no K1 launch, equal to the plain path; each forward's
+   seconds, K1's share of its device time, and the route of GPT-2's
+   strided q/k/v views (any copy before K1 timed);
+14. train — Llama's momentum-SGD ``make_train_step`` through K1 (one
+   launch a layer a step, the backward the recompute rule) at
+   OpenLLaMA-3B's widths: bf16 at all 26 layers, B=1, T=512, 3 steps
+   from seeded params (loss finite; step 1's loss within 2e-2 and
+   momentum within 5e-2 relative L2 of the plain path's; no attention
+   score tensor saved for the backward; seconds a step, tokens/s, peak
+   memory), f32 at 4 layers, one step (loss and momentum within 1e-4 of
+   the plain path's); one MoE step (``MoEConfig.tiny()``) on the card
+   equal to the same code on the CPU within 1e-5; a GPipe forward and
+   gradient (4 stages of 16) equal to sequential execution within 1e-5.
 
 Then the card line from nvidia-smi, a JSON line with the kernels, and
 last ``{"ok": true, "device": {...}}``. Any failed phase raises (exit
@@ -169,7 +196,9 @@ Imports neither jax nor ``demodel_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import re
 import ssl
@@ -469,6 +498,12 @@ CASES = [
       for dt in ("bfloat16", "float16", "float32")),
     *(_case(f"d33_padded_{dt}", 1, 512, 512, 32, 8, 33, dt, view="padded")
       for dt in ("bfloat16", "float16")),
+    # GPT-2's and BERT's attention (12 heads of 64, no GQA) at S=512:
+    # causal and bidirectional, in f32 and bf16
+    *(_case(f"d64_h12_{name}_{dt}", 1, 512, 512, 12, 12, 64, dt,
+            causal=causal)
+      for name, causal in (("causal", True), ("bidir", False))
+      for dt in ("float32", "bfloat16")),
     # LlamaConfig.tiny()'s prefill in the tiny phase (12 tokens, 8 heads
     # over 2, head dim 8)
     *(_case(f"tiny_prefill_{dt}", 1, 12, 12, 8, 2, 8, dt)
@@ -617,7 +652,9 @@ def _kernel_case(c) -> dict:
         lib_dev_ms = lib_dev["all"]
     # work this run's data needs: 4·D flops per visible (query, key) pair
     # per head; bytes of q, k, v read once and o (+ lse) written once
-    pairs = int(fa._mask(kvb, offb, Sq, Sk, c["causal"]).sum().item()) * H
+    # (the mask broadcasts over queries when not causal)
+    pairs = int(fa._mask(kvb, offb, Sq, Sk, c["causal"])
+                .expand(B, 1, Sq, Sk).sum().item()) * H
     flops = 4 * D * pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
     if c["lse"]:
@@ -2893,8 +2930,10 @@ def phase_tiny() -> dict[str, int]:
     f16. By default it is served through K1 (f32 on the 3xTF32
     kernel, bf16 and f16 on the tensor-core kernel at padded head dim
     64), engine tokens equal to ``generate``; with the caller's explicit
-    ``DEMODEL_FLASH_ATTN=0`` on the einsum path, no K1 launch. Returns
-    the K1 launches by kernel over the default runs."""
+    ``DEMODEL_FLASH_ATTN=0`` on the einsum path, no K1 launch. Sampled
+    ``generate`` (temperature 1) draws equal tokens from equal seeded
+    CUDA generators, and temperature 0 equals greedy. Returns the K1
+    launches by kernel over the default runs."""
     import dataclasses
 
     import torch
@@ -2937,8 +2976,21 @@ def phase_tiny() -> dict[str, int]:
         if sum(e_by.values()) != 0 or e_got != e_want:
             raise AssertionError(f"tiny {dtype} on einsum: K1 launches "
                                  f"{e_by}, tokens {e_got} vs {e_want}")
+        # sampled decode: equal seeded generators draw equal tokens, and
+        # temperature 0 is greedy whatever the generator
+        drawn = [llama.generate(params, cfg, prompt, PULL_NEW,
+                                temperature=1.0,
+                                generator=torch.Generator("cuda")
+                                .manual_seed(14))[0].tolist()
+                 for _ in range(2)]
+        at_zero = llama.generate(
+            params, cfg, prompt, PULL_NEW, temperature=0.0,
+            generator=torch.Generator("cuda").manual_seed(14))[0].tolist()
+        if drawn[0] != drawn[1] or at_zero != want:
+            raise AssertionError(f"tiny {dtype} sampled: draws {drawn}, "
+                                 f"temperature 0 {at_zero} vs greedy {want}")
         rows[dtype] = {"kernel_tokens": got, "k1_launches": by_kernel[kernel],
-                       "einsum_tokens": e_got}
+                       "einsum_tokens": e_got, "sampled_tokens": drawn[0]}
     _say("tiny", head_dim=llama.LlamaConfig.tiny().head_dim,
          k1_launches=total, runs=rows)
     return total
@@ -3072,6 +3124,671 @@ def phase_openllama(dtype: str, seed: int) -> int:
     return launches
 
 
+# --------------------------------------------------- families and train
+
+
+#: the families phase's checkpoints: openai-community/gpt2's and
+#: google-bert/bert-base-uncased's published widths, F32, seeded weights
+#: under HF tensor names (GPT-2's Conv1D weights [in, out], BERT's
+#: nn.Linear weights [out, in], BERT's pooler stored and not read)
+GPT2_MODEL = "openai-community/gpt2"
+GPT2_HF = {"architectures": ["GPT2LMHeadModel"], "model_type": "gpt2",
+           "vocab_size": 50257, "n_positions": 1024, "n_ctx": 1024,
+           "n_embd": 768, "n_layer": 12, "n_head": 12,
+           "layer_norm_epsilon": 1e-5, "activation_function": "gelu_new",
+           "torch_dtype": "float32"}
+BERT_MODEL = "google-bert/bert-base-uncased"
+BERT_HF = {"architectures": ["BertForMaskedLM"], "model_type": "bert",
+           "vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
+           "num_attention_heads": 12, "intermediate_size": 3072,
+           "max_position_embeddings": 512, "type_vocab_size": 2,
+           "layer_norm_eps": 1e-12, "hidden_act": "gelu",
+           "torch_dtype": "float32"}
+#: (B, T) of each family's forward: GPT-2 at its full context, BERT at
+#: its full 512 positions; BERT's right-padded rows keep these lengths
+GPT2_SHAPE, BERT_SHAPE = (2, 1024), (4, 512)
+BERT_LENGTHS = (512, 384, 200, 17)
+#: kernel path vs plain path (the caller's DEMODEL_FLASH_ATTN=0) of a
+#: whole forward: f32 by the largest absolute error over the largest
+#: absolute value; bf16 by relative L2, because the plain path's bf16
+#: scores put the largest element several bf16 ulps off wherever the
+#: kernel is (CPU emulation of K1's bf16 numerics at these shapes, three
+#: seeds: BERT 0.017-0.0205 of the largest value, relative L2 0.008-0.010).
+#: Not BF16_TOL, the kernel cases' max-abs bound, though of equal value
+FAMILY_BF16_REL_L2_TOL = 2e-2
+FAMILY_TOL = {"float32": 2e-4, "bfloat16": FAMILY_BF16_REL_L2_TOL}
+
+
+def _hf_family_files(kind: str, seed: int):
+    """A seeded F32 checkpoint at ``kind``'s published widths ("gpt2" or
+    "bert"): the source tensors on the card by HF name, and the repo's
+    files (config.json, model.safetensors) as bytes."""
+    import torch
+
+    from demodel_tpu_torch.formats import safetensors as st
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def w(*shape, std=None, mean=0.0):
+        return mean + torch.randn(shape, generator=gen, device="cuda") * (
+            std if std is not None else shape[0] ** -0.5)
+
+    src = {}
+    if kind == "gpt2":
+        cfg = GPT2_HF
+        D = cfg["n_embd"]
+        src["wte.weight"] = w(cfg["vocab_size"], D, std=0.02)
+        src["wpe.weight"] = w(cfg["n_positions"], D, std=0.01)
+        for i in range(cfg["n_layer"]):
+            p = f"h.{i}."
+            for name, n_in, n_out in (("attn.c_attn", D, 3 * D),
+                                      ("attn.c_proj", D, D),
+                                      ("mlp.c_fc", D, 4 * D),
+                                      ("mlp.c_proj", 4 * D, D)):
+                src[p + name + ".weight"] = w(n_in, n_out)
+                src[p + name + ".bias"] = w(n_out, std=0.02)
+            for ln in ("ln_1", "ln_2"):
+                src[p + ln + ".weight"] = w(D, std=0.05, mean=1.0)
+                src[p + ln + ".bias"] = w(D, std=0.02)
+        src["ln_f.weight"] = w(D, std=0.05, mean=1.0)
+        src["ln_f.bias"] = w(D, std=0.02)
+    else:
+        cfg = BERT_HF
+        D, I = cfg["hidden_size"], cfg["intermediate_size"]
+        e = "bert.embeddings."
+        src[e + "word_embeddings.weight"] = w(cfg["vocab_size"], D, std=0.02)
+        src[e + "position_embeddings.weight"] = w(
+            cfg["max_position_embeddings"], D, std=0.02)
+        src[e + "token_type_embeddings.weight"] = w(
+            cfg["type_vocab_size"], D, std=0.02)
+        src[e + "LayerNorm.weight"] = w(D, std=0.05, mean=1.0)
+        src[e + "LayerNorm.bias"] = w(D, std=0.02)
+        for i in range(cfg["num_hidden_layers"]):
+            p = f"bert.encoder.layer.{i}."
+            for name, n_in, n_out in (("attention.self.query", D, D),
+                                      ("attention.self.key", D, D),
+                                      ("attention.self.value", D, D),
+                                      ("attention.output.dense", D, D),
+                                      ("intermediate.dense", D, I),
+                                      ("output.dense", I, D)):
+                src[p + name + ".weight"] = w(n_out, n_in, std=n_in ** -0.5)
+                src[p + name + ".bias"] = w(n_out, std=0.02)
+            for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+                src[p + ln + ".weight"] = w(D, std=0.05, mean=1.0)
+                src[p + ln + ".bias"] = w(D, std=0.02)
+        src["bert.pooler.dense.weight"] = w(D, D)
+        src["bert.pooler.dense.bias"] = w(D, std=0.02)
+    files = {"config.json": json.dumps(cfg).encode(),
+             "model.safetensors": st.serialize(
+                 {n: t.cpu() for n, t in src.items()})}
+    return src, files
+
+
+def _rel(got, want) -> dict[str, float]:
+    """Largest absolute error over the largest absolute value, and the
+    relative L2 error, of ``got`` against ``want``."""
+    g, w = got.float(), want.float()
+    return {"max_rel": ((g - w).abs().max() / w.abs().max()).item(),
+            "rel_l2": ((g - w).norm() / w.norm()).item()}
+
+
+def _plain_path(fn):
+    """``fn()`` on the plain path: the caller's explicit
+    ``DEMODEL_FLASH_ATTN=0`` (comparison only)."""
+    os.environ["DEMODEL_FLASH_ATTN"] = "0"
+    try:
+        return fn()
+    finally:
+        del os.environ["DEMODEL_FLASH_ATTN"]
+
+
+def _family_forward(name: str, fn, kernel: str | None, dtype: str) -> dict:
+    """One family forward on the card: K1's launches by kernel (counts
+    reset just before, read just after; ``kernel`` the one every launch
+    must be on, 12 of them, or None for none), its seconds (the first
+    call's, and a warm call's), K1's share of its device time, and the
+    output held against the plain path."""
+    import torch
+
+    from demodel_tpu_torch.ops import flash_attention as fa
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        _reset_k1()
+        with _k1_plans() as seen:
+            got, first_s = timed()
+        by_kernel = dict(fa.launches_by_kernel)
+        plan = _qkv_plan(seen) if kernel else None
+        del seen
+        want = _plain_path(fn)
+        secs = timed()[1]  # warm
+        n = 12 if kernel else 0
+        if sum(by_kernel.values()) != n or (kernel and by_kernel[kernel] != n):
+            raise AssertionError(f"families {name}: K1 launches {by_kernel}, "
+                                 f"expected {n} on {kernel}")
+        err = _rel(got, want)
+        tol = FAMILY_TOL[dtype]
+        metric = "max_rel" if dtype == "float32" else "rel_l2"
+        if not (torch.isfinite(got).all() and err[metric] <= tol) or (
+                kernel is None and not torch.equal(got, want)):
+            raise AssertionError(f"families {name}: kernel vs plain {err} "
+                                 f"({metric} tol {tol})")
+        share = None
+        if kernel:
+            dev = _device_ms(fn, {"k1": lambda k: any(s in k for s in
+                                                      K1_KERNELS),
+                                  "all": lambda k: True},
+                             counts_ok={"k1": lambda c: sum(c.values())
+                                        == 12})
+            if dev is not None:
+                share = {"k1_device_ms": dev[0]["k1"],
+                         "device_ms": dev[0]["all"],
+                         "k1_share": dev[0]["k1"] / dev[0]["all"]}
+    return {"dtype": dtype, "shape": list(got.shape), "first_s": first_s,
+            "forward_s": secs,
+            "k1_launches_by_kernel": by_kernel, "vs_plain": err,
+            "tol": {metric: tol}, "device": share, "qkv_plan": plan}
+
+
+@contextlib.contextmanager
+def _k1_plans():
+    """K1's launch plans while the block runs, read from the path that
+    runs: ``fa.launch_plan``, which every launch calls, wrapped to record
+    each plan, and the q, k and v of the first launch."""
+    from demodel_tpu_torch.ops import flash_attention as fa
+
+    orig, seen = fa.launch_plan, []
+
+    def record(q, k, v, *args):
+        plan = orig(q, k, v, *args)
+        seen.append((plan, None if seen else (q, k, v)))
+        return plan
+
+    fa.launch_plan = record
+    try:
+        yield seen
+    finally:
+        fa.launch_plan = orig
+
+
+def _qkv_plan(seen: list) -> dict:
+    """The launch plan the forward's K1 launches took (one for all of
+    them), and the time of the copy it makes before the kernel, on the
+    first launch's q, k and v."""
+    import torch
+
+    from demodel_tpu_torch.ops import flash_attention as fa
+
+    plans = {plan for plan, _ in seen}
+    if len(plans) != 1:
+        raise AssertionError(f"families: {len(plans)} K1 launch plans in "
+                             f"one forward: {plans}")
+    plan, qkv = seen[0]
+    copy = fa._pad8 if plan.kernel.startswith("wgmma") else \
+        torch.Tensor.contiguous
+    copied = [t for t, c in zip(qkv, plan.copy) if c]
+    copy_ms = _time_ms(lambda: [copy(t) for t in copied]) if copied else 0.0
+    return {"kernel": plan.kernel, "copies": list(plan.copy),
+            "maps": list(plan.maps), "copy_ms": copy_ms}
+
+
+def phase_families() -> dict[str, int]:
+    """GPT-2 and BERT at their published widths pulled cold from the
+    in-script Hub (F32 checkpoints of seeded weights) through the port's
+    store, built by ``model_from_pull`` on the card, and run through K1
+    at head dim 64: GPT-2 ``forward`` (causal, B=2, T=1024) and BERT
+    ``encode`` (bidirectional, B=4, T=512) in f32 (``tf32x3_f32``), BERT
+    with a right-padded mask (the einsum path, no K1 launch), then the
+    same in bf16 (``wgmma_bf16``); every output against the plain path.
+    Returns the K1 launches by kernel of the forwards."""
+    import dataclasses
+    import functools
+    import shutil
+    import tempfile
+
+    import torch
+
+    from demodel_tpu_torch import delivery
+    from demodel_tpu_torch.config import ProxyConfig
+    from demodel_tpu_torch.models import auto
+    from demodel_tpu_torch.parallel import make_mesh
+    from demodel_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    src, repos = {}, {}
+    for kind, model, seed in (("gpt2", GPT2_MODEL, 51),
+                              ("bert", BERT_MODEL, 52)):
+        src[kind], repos[model] = _hf_family_files(kind, seed)
+    build_s = time.perf_counter() - t0
+    handler = _hf_handler(repos)
+    hub = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=hub.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{hub.server_port}"
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-families-")
+    built, pulls = {}, {}
+    try:
+        for kind, model in (("gpt2", GPT2_MODEL), ("bert", BERT_MODEL)):
+            cfg = ProxyConfig(host="127.0.0.1", port=0, no_mitm=True,
+                              cache_dir=os.path.join(tmp, kind),
+                              data_dir=os.path.join(tmp, "data"))
+            t1 = time.perf_counter()
+            report, placed = delivery.pull_to_hbm(model, cfg, endpoint=url,
+                                                  mesh=make_mesh())
+            store = delivery.open_store(cfg)
+            try:
+                built[kind] = auto.model_from_pull(store, report,
+                                                   placement=placed)
+            finally:
+                store.close()
+            torch.cuda.synchronize()
+            unequal = [n for n, t in src[kind].items()
+                       if not torch.equal(placed.arrays[n], t)]
+            if unequal or sorted(placed.arrays) != sorted(src[kind]):
+                raise AssertionError(f"families {kind}: placed tensors "
+                                     f"differ: {unequal[:5]}")
+            pulls[kind] = {"pull_and_build_s": time.perf_counter() - t1,
+                           "bytes": len(repos[model]["model.safetensors"]),
+                           "tensors": len(placed.arrays),
+                           "dtype": built[kind][2].dtype}
+            del placed
+    finally:
+        hub.shutdown()
+        hub.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del src, repos
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator("cuda").manual_seed(53)
+    g_tok = torch.randint(0, GPT2_HF["vocab_size"], GPT2_SHAPE,
+                          generator=gen, device="cuda")
+    b_tok = torch.randint(0, BERT_HF["vocab_size"], BERT_SHAPE,
+                          generator=gen, device="cuda")
+    b_types = torch.randint(0, 2, BERT_SHAPE, generator=gen, device="cuda")
+    b_mask = (torch.arange(BERT_SHAPE[1], device="cuda")[None]
+              < torch.tensor(BERT_LENGTHS, device="cuda")[:, None]).int()
+    total = {k: 0 for k in K1_BY_DTYPE.values()}
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        kernel = K1_BY_DTYPE[dtype]
+        dt = getattr(torch, dtype)
+        models = {}
+        for kind, (fn, params, mcfg) in built.items():
+            if dtype != mcfg.dtype:  # cast the pulled model
+                fn = functools.partial(fn.func, cfg=dataclasses.replace(
+                    mcfg, dtype=dtype))
+                params = tree_map(lambda t: t.to(dt), params)
+            models[kind] = (fn, params)
+        (g_fn, gp), (b_fn, bp) = models["gpt2"], models["bert"]
+        legs = {
+            "gpt2": (lambda: g_fn(gp, g_tok), kernel),
+            "bert": (lambda: b_fn(bp, b_tok, token_type_ids=b_types), kernel),
+            "bert_masked": (lambda: b_fn(bp, b_tok, attention_mask=b_mask,
+                                         token_type_ids=b_types), None)}
+        for leg, (fn, k) in legs.items():
+            row = _family_forward(f"{leg} {dtype}", fn, k, dtype)
+            if k:
+                total[k] += row["k1_launches_by_kernel"][k]
+            runs[f"{leg}_{dtype}"] = row
+        del models, gp, bp, legs
+        torch.cuda.empty_cache()
+    _say("families", models={GPT2_MODEL: "published widths, 12 layers, "
+                             "F32, seeded", BERT_MODEL: "published widths, "
+                             "12 layers, F32, seeded"},
+         checkpoint_build_s=round(build_s, 3), pulls=pulls,
+         bert_lengths=list(BERT_LENGTHS), runs=runs, k1_launches=total)
+    del built
+    torch.cuda.empty_cache()
+    return total
+
+
+#: the train phase: OpenLLaMA-3B's widths (OPENLLAMA_3B) in bf16 at full
+#: depth, B=1 and T=512 tokens a step (513 drawn: inputs and targets),
+#: TRAIN_STEPS steps; f32 at TRAIN_F32_LAYERS layers, one step
+TRAIN_T = 512
+TRAIN_STEPS = 3
+TRAIN_F32_LAYERS = 4
+#: the f32 step against the plain path: loss and every momentum leaf
+#: within 1e-4 of the leaf's largest value
+TRAIN_F32_TOL = 1e-4
+#: the bf16 step against the plain path: the loss within BF16_TOL
+#: (relative), the momentum tree within TRAIN_BF16_TREE_TOL by relative
+#: L2, and every momentum leaf within TRAIN_BF16_LEAF_TOL by relative L2.
+#: bf16 gradients of the q/k projections carry the softmax backward's
+#: cancellation: in CPU emulation at these widths two bf16 steps that
+#: differ only in rounding the probabilities (K1 against its plain
+#: version) put q_proj/k_proj gradients 2.0-2.6% apart (8 layers), the
+#: einsum path 2.5-3.2%, and each 1.8-2.1% (relative L2) from the f32
+#: gradient (4 layers); a per-leaf 2e-2 bound sits on that floor. The
+#: whole tree's norm is dominated by the leaves of largest gradient, so
+#: the per-leaf bound is what holds the q/k leaves, which only the
+#: softmax backward reaches: a q/k leaf zeroed or wrong reads about 1,
+#: and TRAIN_DQ_CONTROL (dq scaled in the backward) must fail it
+TRAIN_BF16_TREE_TOL = 5e-2
+TRAIN_BF16_LEAF_TOL = 1e-1
+#: the gate's control: one more bf16 step with FlashAttention's dq scaled
+#: by this factor, which the same gate must refuse (a q_proj leaf then
+#: reads about 1 - factor)
+TRAIN_DQ_CONTROL = 0.8
+#: MoE on the card against the same port code on the CPU, and the GPipe
+#: stages against sequential execution: every leaf within 1e-5 of
+#: max(1, its largest value)
+TRAIN_SMALL_TOL = 1e-5
+
+
+def _leaf_errors(got, want) -> dict:
+    """Momentum trees compared leaf for leaf: the worst largest-error
+    ratio and the worst relative L2 over the leaves, each as [value, the
+    leaf's index in ``leaves`` order], and the relative L2 of the whole
+    tree."""
+    from demodel_tpu_torch.utils.tree import leaves
+
+    max_rel, rel_l2, num, den = [], [], 0.0, 0.0
+    for i, (g, w) in enumerate(zip(leaves(got), leaves(want))):
+        d, w = g.float() - w.float(), w.float()
+        num += float((d * d).sum())
+        den += float((w * w).sum())
+        max_rel.append([float(d.abs().max() / w.abs().max()), i])
+        rel_l2.append([float(d.norm() / w.norm()), i])
+    return {"worst_max_rel": max(max_rel), "worst_rel_l2": max(rel_l2),
+            "tree_rel_l2": (num / den) ** 0.5}
+
+
+@contextlib.contextmanager
+def _dq_scaled(factor: float):
+    """FlashAttention's backward with its dq scaled by ``factor`` while
+    the block runs: the fault the bf16 gate's control injects."""
+    from demodel_tpu_torch.ops import flash_attention as fa
+
+    orig = fa.FlashAttention.backward
+
+    def backward(ctx, g_out, g_lse=None):
+        dq, *rest = orig(ctx, g_out, g_lse)
+        return (dq * factor, *rest)
+
+    fa.FlashAttention.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        fa.FlashAttention.backward = staticmethod(orig)
+
+
+def _bf16_step_ok(loss, loss_plain, err: dict) -> bool:
+    """The bf16 train gate: step 1's loss and momentum against the plain
+    path's (TRAIN_BF16_TREE_TOL, TRAIN_BF16_LEAF_TOL)."""
+    loss_err = abs(loss - loss_plain) / abs(loss_plain)
+    return (math.isfinite(loss) and loss_err <= BF16_TOL
+            and err["tree_rel_l2"] <= TRAIN_BF16_TREE_TOL
+            and err["worst_rel_l2"][0] <= TRAIN_BF16_LEAF_TOL)
+
+
+def _k1_step(step, params, opt, tokens, n_layers: int, kernel: str):
+    """One train step with K1's counts reset just before and read just
+    after; ``n_layers`` launches, all on ``kernel``. Returns the step's
+    outputs and its seconds."""
+    import torch
+
+    from demodel_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    _reset_k1()
+    t0 = time.perf_counter()
+    out = step(params, opt, tokens)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    by_kernel = dict(fa.launches_by_kernel)
+    if by_kernel[kernel] != n_layers or sum(by_kernel.values()) != n_layers:
+        raise AssertionError(f"train: K1 launches {by_kernel} in a step, "
+                             f"expected {n_layers} on {kernel}")
+    return out, secs
+
+
+def _graph_memory(params, tokens, cfg) -> dict:
+    """One forward and backward of the Llama loss: the tensors autograd
+    saves whose last two dims are (T, T) (the attention score tensors a
+    backward would hold for every layer at once), and the device bytes
+    the forward's graph holds and the backward's peak, over what was
+    allocated before."""
+    import torch
+
+    from demodel_tpu_torch.models import llama
+    from demodel_tpu_torch.utils.tree import leaves, tree_map
+
+    T = tokens.shape[1] - 1
+    found = []
+
+    def pack(t):
+        if t.dim() >= 2 and tuple(t.shape[-2:]) == (T, T):
+            found.append(tuple(t.shape))
+        return t
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    req = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss = llama.loss_fn(req, tokens, cfg)
+    torch.cuda.synchronize()
+    graph = torch.cuda.memory_allocated() - base
+    grads = torch.autograd.grad(loss, leaves(req))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del loss, req, grads
+    return {"saved_score_tensors": len(found), "graph_bytes": graph,
+            "backward_peak_bytes": peak}
+
+
+def _train_llama_bf16(tokens) -> tuple[int, dict]:
+    """OpenLLaMA-3B's widths in bf16, 26 layers: TRAIN_STEPS momentum-SGD
+    steps through K1 (26 launches each, the backward a recompute), step
+    1 against the plain path's. Returns the K1 launches and the row."""
+    import dataclasses
+
+    import torch
+
+    from demodel_tpu_torch.models import llama
+    from demodel_tpu_torch.utils.tree import leaves
+
+    cfg = dataclasses.replace(llama.LlamaConfig.from_hf(OPENLLAMA_3B),
+                              dtype="bfloat16")
+    L = cfg.num_hidden_layers
+    params = llama.init_params(torch.Generator("cuda").manual_seed(61), cfg,
+                               "cuda")
+    init, step = llama.make_train_step(cfg)
+    graph = {"k1": _graph_memory(params, tokens, cfg),
+             "plain": _plain_path(lambda: _graph_memory(params, tokens,
+                                                        cfg))}
+    if graph["k1"]["saved_score_tensors"] != 0:
+        raise AssertionError(f"train: autograd saves score tensors through "
+                             f"K1: {graph['k1']}")
+    opt = init(params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (p1, m1, loss1), step1_s = _k1_step(step, params, opt, tokens, L,
+                                        "wgmma_bf16")
+    peak1 = torch.cuda.max_memory_allocated() - base
+    m_plain, loss_plain = _plain_path(
+        lambda: step(params, opt, tokens)[1:])  # new params dropped
+    err = _leaf_errors(m1, m_plain)
+    loss_err = abs(loss1.item() - loss_plain.item()) / abs(loss_plain.item())
+    if not _bf16_step_ok(loss1.item(), loss_plain.item(), err):
+        raise AssertionError(f"train bf16: step 1 vs plain: loss "
+                             f"{loss1.item()} vs {loss_plain.item()}, "
+                             f"momentum {err}")
+    with _dq_scaled(TRAIN_DQ_CONTROL):
+        m_ctl, loss_ctl = step(params, opt, tokens)[1:]
+    control = _leaf_errors(m_ctl, m_plain)
+    control["refused"] = not _bf16_step_ok(loss_ctl.item(),
+                                           loss_plain.item(), control)
+    del opt, params, m_plain, m_ctl
+    if not control["refused"]:
+        raise AssertionError(f"train bf16: the gate passed a step with dq "
+                             f"scaled by {TRAIN_DQ_CONTROL}: {control}")
+    losses, secs = [loss1.item()], [step1_s]
+    state = (p1, m1)
+    del p1, m1
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS - 1):
+        (p, m, loss), t = _k1_step(step, *state, tokens, L, "wgmma_bf16")
+        state = (p, m)
+        del p, m
+        if not torch.isfinite(loss):
+            raise AssertionError(f"train bf16: loss {loss.item()}")
+        losses.append(loss.item())
+        secs.append(t)
+    peak = torch.cuda.max_memory_allocated()
+    tree_bytes = sum(t.numel() * t.element_size()
+                     for t in leaves(state[0]))
+    del state
+    torch.cuda.empty_cache()
+    steady = secs[1:]
+    return L * TRAIN_STEPS, {
+        "layers": L, "tokens_per_step": TRAIN_T, "losses": losses,
+        "step_s": secs, "tokens_per_s": TRAIN_T * len(steady) / sum(steady),
+        "max_memory_allocated": peak, "params_bytes": tree_bytes,
+        "step_peak_over_inputs": {"step1": peak1,
+                                  "steps_2_on": peak - base},
+        "k1_launches_per_step": {"wgmma_bf16": L},
+        "graph": graph, "step1_loss_plain": loss_plain.item(),
+        "step1_loss_rel_err": loss_err, "step1_momentum_vs_plain": err,
+        "dq_control": {"dq_scale": TRAIN_DQ_CONTROL, **control},
+        "tol": {"loss": BF16_TOL, "momentum_tree_rel_l2": TRAIN_BF16_TREE_TOL,
+                "momentum_leaf_rel_l2": TRAIN_BF16_LEAF_TOL}}
+
+
+def _train_llama_f32(tokens) -> tuple[int, dict]:
+    """The same widths in f32 at TRAIN_F32_LAYERS layers, one step
+    through K1 (``tf32x3_f32``) against the plain path's."""
+    import dataclasses
+
+    import torch
+
+    from demodel_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.from_hf(OPENLLAMA_3B),
+                              num_hidden_layers=TRAIN_F32_LAYERS)
+    L = cfg.num_hidden_layers
+    params = llama.init_params(torch.Generator("cuda").manual_seed(62), cfg,
+                               "cuda")
+    init, step = llama.make_train_step(cfg)
+    opt = init(params)
+    out, secs = _k1_step(step, params, opt, tokens, L, "tf32x3_f32")
+    m1, loss1 = out[1:]
+    del out
+    m_plain, loss_plain = _plain_path(lambda: step(params, opt, tokens)[1:])
+    err = _leaf_errors(m1, m_plain)
+    loss_err = abs(loss1.item() - loss_plain.item())
+    if not (torch.isfinite(loss1) and loss_err <= TRAIN_F32_TOL
+            and err["worst_max_rel"][0] <= TRAIN_F32_TOL):
+        raise AssertionError(f"train f32: step vs plain: loss "
+                             f"{loss1.item()} vs {loss_plain.item()}, "
+                             f"momentum {err}")
+    del params, opt, m1, m_plain
+    torch.cuda.empty_cache()
+    return L, {"layers": L, "loss": loss1.item(),
+               "loss_plain": loss_plain.item(), "step_s": secs,
+               "momentum_vs_plain": err, "tol": TRAIN_F32_TOL}
+
+
+def _train_moe() -> dict:
+    """One MoE step (``MoEConfig.tiny()``) on the card against the same
+    port code on the CPU."""
+    import torch
+
+    from demodel_tpu_torch.models import moe
+    from demodel_tpu_torch.utils.tree import leaves, tree_map
+
+    cfg = moe.MoEConfig.tiny()
+    cpu = moe.init_params(torch.Generator().manual_seed(63), cfg, "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (2, 13),
+                        generator=torch.Generator().manual_seed(64))
+    init, step = moe.make_train_step(cfg)
+    want = step(cpu, init(cpu), tok)
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    got = step(card, init(card), tok.to("cuda"))
+    torch.cuda.synchronize()
+    worst = max(float((g.cpu() - w).abs().max()
+                      / max(1.0, float(w.abs().max())))
+                for g, w in zip(leaves(got), leaves(want)))
+    if not worst <= TRAIN_SMALL_TOL or got[2].device.type != "cuda":
+        raise AssertionError(f"train moe: card vs CPU {worst}")
+    return {"loss": got[2].item(), "loss_cpu": want[2].item(),
+            "max_err": worst, "tol": TRAIN_SMALL_TOL}
+
+
+def _train_gpipe() -> dict:
+    """``pipeline_apply`` forward and gradient on the card at
+    tests/test_pipeline.py's sizes (4 stages of 16, 4 microbatches of
+    2) against sequential execution of the same stages."""
+    import torch
+
+    from demodel_tpu_torch.parallel import pipeline
+
+    gen = torch.Generator("cuda").manual_seed(65)
+    dim, n_stages, n_micro = 16, 4, 4
+
+    def stage_fn(p, a):
+        return torch.tanh(a @ p["w"] + p["b"])
+
+    def rnd(*shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    stages = [{"w": rnd(dim, dim, scale=dim ** -0.5), "b": rnd(dim, scale=0.1)}
+              for _ in range(n_stages)]
+    x = rnd(n_micro * 2, dim, scale=1.0)
+    stacked = {k: v.detach().requires_grad_() for k, v in
+               pipeline.stack_stages(stages).items()}
+    out = pipeline.pipeline_apply(stage_fn, stacked,
+                                  pipeline.microbatch(x, n_micro))
+    (out ** 2).mean().backward()
+    seq = [{k: v.detach().requires_grad_() for k, v in s.items()}
+           for s in stages]
+    a = x
+    for s in seq:
+        a = stage_fn(s, a)
+    (a ** 2).mean().backward()
+    torch.cuda.synchronize()
+    errs = [float((out - a.reshape(out.shape)).detach().abs().max())]
+    for k in ("w", "b"):
+        want = torch.stack([s[k].grad for s in seq])
+        errs.append(float((stacked[k].grad - want).abs().max()))
+    if max(errs) > TRAIN_SMALL_TOL:
+        raise AssertionError(f"train gpipe: vs sequential {errs}")
+    return {"stages": n_stages, "microbatches": n_micro, "dim": dim,
+            "max_err": max(errs), "tol": TRAIN_SMALL_TOL}
+
+
+def phase_train() -> dict[str, int]:
+    """The training side on the card: Llama's momentum-SGD step through
+    K1 (its forward once a layer, the backward the recompute rule) at
+    OpenLLaMA-3B's widths in bf16 (26 layers, 3 steps) and f32 (4
+    layers, 1 step), each step 1 against the plain path; one MoE step
+    against the same code on the CPU; a GPipe forward and gradient
+    against sequential execution. Returns the K1 launches by kernel of
+    the K1 steps."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(60)
+    tokens = torch.randint(0, OPENLLAMA_3B["vocab_size"], (1, TRAIN_T + 1),
+                           generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    n_bf16, bf16 = _train_llama_bf16(tokens)
+    n_f32, f32 = _train_llama_f32(tokens)
+    row = {"llama_bf16": bf16, "llama_f32": f32, "moe": _train_moe(),
+           "gpipe": _train_gpipe()}
+    _say("train", model="OpenLLaMA-3B widths, seeded; MoEConfig.tiny(); "
+         "GPipe 4x16", phase_s=time.perf_counter() - t0, **row)
+    return {"wgmma_bf16": n_bf16, "tf32x3_f32": n_f32}
+
+
 def _dequant_entries(rows: dict[str, dict], launches: dict[str, int]
                      ) -> list[dict]:
     """The kernels-line entries of the dequant kernels: q8_0, q4_0, and
@@ -3100,9 +3817,11 @@ def _flash_entries(rows: dict[str, dict], launches: dict[str, int]
                    ) -> list[dict]:
     """The kernels-line entries of K1: the bf16 and f16 ``wgmma`` kernel
     at the 7B prefill (S=512) with its rows at head dims 8, 80, 96, 100
-    (OpenLLaMA-3B) and 256 beside, and the f32 3xTF32 kernel at
+    (OpenLLaMA-3B) and 256 beside (bf16 also GPT-2's and BERT's D=64 at
+    12 heads, causal and bidirectional), and the f32 3xTF32 kernel at
     OpenLLaMA-3B's prefill (D=100, S=512; the openllama f32 leg's shape)
-    with its rows at head dims 8, 80, 100, 128 and 256 (S=512) beside."""
+    with its rows at head dims 8, 80, 100, 128, 256 and the two D=64
+    ones (S=512) beside."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "device_ms_by", "library_device_ms",
             "library_device_ms_by", "shape", "dtype")
@@ -3113,6 +3832,7 @@ def _flash_entries(rows: dict[str, dict], launches: dict[str, int]
                 "replaces": "demodel_tpu/ops/flash_attention.py:136",
                 "launches": n, **{k: row[k] for k in keys}}
 
+    d64 = ("d64_h12_causal", "d64_h12_bidir")  # GPT-2's and BERT's
     out = []
     for name, row, dtype in (("flash_attention", "prefill_s512", "bfloat16"),
                              ("flash_attention_f16", "f16_prefill_s512",
@@ -3120,13 +3840,14 @@ def _flash_entries(rows: dict[str, dict], launches: dict[str, int]
         e = entry(name, rows[row], launches[K1_BY_DTYPE[dtype]])
         e["head_dims"] = [{k: rows[n][k] for k in keys} for n in (
             f"d8_{dtype}", f"d80_{dtype}", f"d96_{dtype}",
-            f"openllama_s512_{dtype}", f"d256_{dtype}")]
+            f"openllama_s512_{dtype}", f"d256_{dtype}",
+            *(f"{c}_{dtype}" for c in d64 if dtype == "bfloat16"))]
         out.append(e)
     e = entry("flash_attention_tf32x3_f32", rows["openllama_s512_float32"],
               launches["tf32x3_f32"])
     e["head_dims"] = [{k: rows[n][k] for k in keys} for n in (
         "d8_float32", "d80_float32", "openllama_s512_float32",
-        "f32_d128_s512", "d256_float32")]
+        "f32_d128_s512", "d256_float32", *(f"{c}_float32" for c in d64))]
     out.append(e)
     return out
 
@@ -3170,6 +3891,9 @@ def main() -> int:
         k1[kernel] = k1.get(kernel, 0) + n
     k1["wgmma_f16"] += phase_openllama("float16", seed=11)
     k1["tf32x3_f32"] += phase_openllama("float32", seed=13)
+    for phase in (phase_families, phase_train):
+        for kernel, n in phase().items():
+            k1[kernel] += n
     _say("done", total_s=round(time.perf_counter() - t0, 3))
     print(smi, flush=True)
     print(json.dumps({"kernels": [*_flash_entries(rows, k1),

@@ -1,10 +1,11 @@
 """Weights carried across from the JAX package.
 
-:func:`params_from_numpy` turns a Llama params tree of the JAX package,
-given as numpy arrays (``jax.tree.map(np.asarray, params)``: projections
-``[in, out]``), into the port's dict of tensors, leaf for leaf — the two
-packages then compute the same function. bf16 arrays (numpy's
-``bfloat16`` extension dtype) are reinterpreted bit for bit.
+:func:`params_from_numpy` turns a params tree of the JAX package (Llama,
+GPT-2, BERT or MoE), given as numpy arrays (``jax.tree.map(np.asarray,
+params)``: projections ``[in, out]``), into the port's tree of tensors,
+leaf for leaf — the two packages then compute the same function. bf16
+arrays (numpy's ``bfloat16`` extension dtype) are reinterpreted bit for
+bit.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from demodel_tpu_torch.device import resolve
+from demodel_tpu_torch.utils.tree import tree_map
 
 
 def to_tensor(arr, device: torch.device,
@@ -39,12 +41,4 @@ def params_from_numpy(tree, cfg, device: str | torch.device | None = None,
     ``cfg.dtype``)."""
     dev = resolve(device)
     dt = dtype or cfg.torch_dtype
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [conv(v) for v in node]
-        return to_tensor(node, dev, dt)
-
-    return conv(tree)
+    return tree_map(lambda a: to_tensor(a, dev, dt), tree)

@@ -14,9 +14,15 @@ KV pool computes attention, and from there the residual stream, in fp32.
 ``torch.matmul``/``einsum`` do not promote on their own, so :func:`_mm`
 and :func:`_einsum` cast both operands to the promoted type first.
 
+``generate`` samples with temperature from the caller's
+``torch.Generator`` (the JAX package draws from ``jax.random``, another
+RNG, so only greedy tokens compare across packages). ``loss_fn`` and
+``make_train_step`` are the training side: the gradient reaches the
+projections through K1's backward (``FlashAttention``).
+
 Not ported here: ``param_shardings`` and the ``sp`` ring branch (the
-multi-GPU slice), ``_head_align`` (an XLA/GSPMD workaround with no
-single-device counterpart) and the train step.
+multi-GPU slice) and ``_head_align`` (an XLA/GSPMD workaround with no
+single-device counterpart).
 """
 
 from __future__ import annotations
@@ -29,12 +35,16 @@ import torch
 import torch.nn.functional as F
 
 from demodel_tpu_torch.device import resolve
-from demodel_tpu_torch.models.common import rms_norm, use_flash_attention
+from demodel_tpu_torch.models.common import (
+    DTYPES,
+    momentum_sgd,
+    next_token_nll,
+    rms_norm,
+    use_flash_attention,
+)
 from demodel_tpu_torch.ops.flash_attention import flash_attention
 from demodel_tpu_torch.ops.ring_attention import dense_attention, mask_scores
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+from demodel_tpu_torch.parallel.mesh import one_device
 
 
 @dataclass(frozen=True)
@@ -55,7 +65,7 @@ class LlamaConfig:
 
     @property
     def torch_dtype(self) -> torch.dtype:
-        return _DTYPES[self.dtype]
+        return DTYPES[self.dtype]
 
     @classmethod
     def tiny(cls) -> "LlamaConfig":
@@ -305,25 +315,61 @@ def step_decode(params, tokens: torch.Tensor, cfg: LlamaConfig, cache,
     return _head(params, x, cfg)[:, 0], new_kv
 
 
+def sample(last: torch.Tensor, temperature: float = 0.0,
+           generator: torch.Generator | None = None) -> torch.Tensor:
+    """Next tokens [B] from logits ``last`` [B, V]: the argmax at
+    temperature 0 (whatever ``generator``), else a draw from
+    ``softmax(last / temperature)`` (in float32) with ``generator``."""
+    if temperature <= 0:
+        return torch.argmax(last, dim=-1)
+    probs = torch.softmax(last.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
 @torch.inference_mode()
-def generate(params, cfg: LlamaConfig, prompt,
-             max_new_tokens: int) -> torch.Tensor:
-    """Greedy autoregressive decode: prefill the prompt once, then one
-    cached step per token. Returns [B, max_new_tokens] token ids."""
+def generate(params, cfg: LlamaConfig, prompt, max_new_tokens: int,
+             temperature: float = 0.0,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+    """Autoregressive decode: prefill the prompt once, then one cached
+    step per token; each token from :func:`sample` (greedy at
+    temperature 0; above it, ``generator`` draws, a generator on the
+    params' device seeded with 0 when None). Returns
+    [B, max_new_tokens] token ids."""
     dev = params["embed"].device
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=dev)
     if prompt.ndim == 1:
         prompt = prompt[None]
     B, T0 = prompt.shape
+    if temperature > 0 and generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
     cache = init_cache(cfg, B, T0 + max_new_tokens, device=dev)
     logits, cache = forward_with_cache(params, prompt, cfg, cache, 0)
     last = logits[:, -1]
     out = []
     for i in range(max_new_tokens):
-        tok = torch.argmax(last, dim=-1)
+        tok = sample(last, temperature, generator)
         out.append(tok)
         if i + 1 < max_new_tokens:  # the last token's logits go unused
             logits, cache = forward_with_cache(params, tok[:, None], cfg,
                                                cache, T0 + i)
             last = logits[:, -1]
     return torch.stack(out, dim=1)
+
+
+# -------------------------------------------------------------- train step
+
+
+def loss_fn(params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Next-token cross entropy (fp32 logits for the softmax)."""
+    return next_token_nll(forward(params, tokens[:, :-1], cfg), tokens)
+
+
+def make_train_step(cfg: LlamaConfig, mesh=None, lr: float = 1e-3,
+                    momentum: float = 0.9):
+    """``(init_opt, train_step)`` with a momentum-SGD state that mirrors
+    the params tree leaf for leaf (:func:`~demodel_tpu_torch.models.
+    common.momentum_sgd`). ``mesh``: one device (more raise, ROADMAP
+    A7)."""
+    if mesh is not None:
+        one_device(mesh, "the Llama train step")
+    return momentum_sgd(lambda p, t: loss_fn(p, t, cfg), lr, momentum)

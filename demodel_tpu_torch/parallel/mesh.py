@@ -85,3 +85,14 @@ def make_mesh(n_devices: int | None = None, *, dp: int | None = None,
     arr = np.empty(len(devices), dtype=object)
     arr[:] = devices
     return Mesh(arr.reshape(tuple(sizes.values())), tuple(sizes))
+
+
+def one_device(mesh: Mesh, what: str) -> torch.device:
+    """The device of a one-device ``mesh``; ``what`` over more devices
+    raises (ROADMAP A7)."""
+    if mesh.size != 1:
+        raise NotImplementedError(
+            f"{what} over {mesh.size} devices (mesh {mesh.shape}) is not "
+            "ported yet (ROADMAP A7); pass a one-device mesh, e.g. "
+            "make_mesh(1)")
+    return mesh.devices.flat[0]

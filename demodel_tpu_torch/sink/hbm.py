@@ -28,7 +28,7 @@ import torch
 from demodel_tpu_torch.formats import gguf as gguf_mod
 from demodel_tpu_torch.formats import safetensors as st
 from demodel_tpu_torch.ops import dequant
-from demodel_tpu_torch.parallel.mesh import Mesh, make_mesh
+from demodel_tpu_torch.parallel.mesh import Mesh, make_mesh, one_device
 from demodel_tpu_torch.sink.plan import ShardingPlan
 from demodel_tpu_torch.utils import trace
 from demodel_tpu_torch.utils.logging import get_logger
@@ -108,12 +108,8 @@ def _device_indices(mesh: Mesh, spec: tuple, shape: tuple[int, ...]
     """Each device's index into a tensor of ``shape`` placed by ``spec``,
     as jax's ``addressable_devices_indices_map`` gives it. On one device
     that is the whole tensor; more devices raise."""
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"placement over {mesh.size} devices (mesh {mesh.shape}, spec "
-            f"{spec}) is not ported yet (ROADMAP A7); pass a one-device "
-            "mesh, e.g. make_mesh(1)")
-    return {mesh.devices.flat[0]: (slice(None),) * len(shape)}
+    dev = one_device(mesh, f"placement (spec {spec})")
+    return {dev: (slice(None),) * len(shape)}
 
 
 def _read_into_from(read_at):

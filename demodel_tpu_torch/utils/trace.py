@@ -15,6 +15,7 @@ the budget-wait share of wall time as a rate.
 from __future__ import annotations
 
 import contextvars
+import os
 import time
 from typing import Any, Callable
 
@@ -82,6 +83,14 @@ class _NoopSpan:
 
 
 NOOP = _NoopSpan()
+
+
+def enabled() -> bool:
+    """Export tracing asked for (``DEMODEL_TRACE`` set, as in the JAX
+    plane): the guard of spans that cost real work, such as a device
+    synchronise. The port has no exporter yet (ROADMAP A6); its spans
+    still land in the histograms."""
+    return bool(os.environ.get("DEMODEL_TRACE", "").strip())
 
 
 def span(name: str, **attrs: Any) -> Span:

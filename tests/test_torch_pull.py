@@ -13,8 +13,9 @@ semantics on both packages against one origin (a body cut mid-way
 resumes with one retry; a wrong digest raises at once; the native
 parallel fetch lands what the reference's lands), the wire policy's
 classification, the streaming sink's byte budget, and the failure paths
-(unsupported config fields and families). The Ollama source and peers
-are held in ``test_torch_ollama.py`` and ``test_torch_peer.py``.
+(unsupported config fields, an unknown family; GPT-2 and BERT build).
+The Ollama source and peers are held in ``test_torch_ollama.py`` and
+``test_torch_peer.py``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ from demodel_tpu_torch import serve as tserve
 from demodel_tpu_torch.config import ProxyConfig as TConfig
 from demodel_tpu_torch.formats import safetensors as tst
 from demodel_tpu_torch.models import auto as tauto
+from demodel_tpu_torch.models import bert as tbert
+from demodel_tpu_torch.models import gpt2 as tgpt2
 from demodel_tpu_torch.parallel import make_mesh
 from demodel_tpu_torch.registry import base as tbase
 from demodel_tpu_torch.serve import http as thttp
@@ -49,6 +52,13 @@ from demodel_tpu_torch.store import Store as TStore
 from demodel_tpu_torch.utils import faults
 
 from .fake_registries import make_hf_handler
+from .hf_families import (
+    BERT_CONFIG,
+    GPT2_CONFIG,
+    bert_state,
+    gpt2_state,
+    repo_files,
+)
 from .servers import FakeUpstream
 
 torch.set_num_threads(1)
@@ -297,20 +307,38 @@ def test_model_from_pull_refuses_unsupported_fields(tmp_path, field, value):
         store.close()
 
 
-@pytest.mark.parametrize("model_type,err,match", [
-    ("mamba", ValueError, "model_type"),
-    ("gpt2", NotImplementedError, "A8"),
-    ("bert", NotImplementedError, "A8")])
-def test_model_from_pull_refuses_other_families(tmp_path, model_type, err,
-                                                match):
-    store, report = _pull_files(
-        tmp_path, _llama_files(config={"model_type": model_type}))
+def _family_files(model_type: str) -> dict:
+    """The repo pulled for ``model_type``: GPT-2 and BERT as their own
+    seeded HF checkpoints, anything else the Llama files under that
+    ``model_type``."""
+    if model_type == "gpt2":
+        return repo_files(GPT2_CONFIG, gpt2_state())
+    if model_type == "bert":
+        return repo_files(BERT_CONFIG, bert_state())
+    return _llama_files(config={"model_type": model_type})
+
+
+@pytest.mark.parametrize("model_type,built", [
+    ("mamba", None), ("gpt2", tgpt2.GPT2Config), ("bert", tbert.BertConfig)])
+def test_model_from_pull_refuses_other_families(tmp_path, model_type, built):
+    """An unknown family is refused; GPT-2 and BERT (ported since ROADMAP
+    A8) build from their pulled files and run on the placement's
+    device."""
+    store, report = _pull_files(tmp_path, _family_files(model_type))
     try:
-        with pytest.raises(err, match=match):
-            tauto.model_from_pull(store, report,
-                                  mesh=make_mesh(device="cpu"))
+        if built is None:
+            with pytest.raises(ValueError, match="model_type"):
+                tauto.model_from_pull(store, report,
+                                      mesh=make_mesh(device="cpu"))
+            return
+        fn, params, cfg = tauto.model_from_pull(
+            store, report, mesh=make_mesh(device="cpu"))
     finally:
         store.close()
+    assert isinstance(cfg, built) and cfg.dtype == "float32"
+    out = fn(params, torch.arange(10).reshape(2, 5))
+    assert out.shape[:2] == (2, 5) and out.device.type == "cpu"
+    assert torch.isfinite(out).all()
 
 
 # ------------------------------------------------------------ the fetcher

@@ -17,6 +17,7 @@ import http.client
 import json
 import shutil
 import socket
+import time
 import urllib.parse
 
 import numpy as np
@@ -583,6 +584,20 @@ def _families(text: str) -> dict[str, str]:
                 or line.split()[2] in STORE_FAMILIES)}
 
 
+def _route_timed(proxy, timeout_s: float = 10.0) -> None:
+    """Wait until the native plane has timed a served request. It
+    observes ``serve_request_seconds`` and ``serve_ttfb_seconds`` once
+    the body is drained, which can land after the client has read it."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        hist = proxy.metrics().get("hist", {})
+        if all(hist.get(f, {}).get("routes") for f in
+               ("serve_request_seconds", "serve_ttfb_seconds")):
+            return
+        assert time.monotonic() < deadline, hist
+        time.sleep(0.01)
+
+
 def test_metrics_render_matches_the_reference(pulled, nodes):
     """``render(proxy, store)`` over one store: the same
     ``demodel_proxy_*`` and store families (and types) as the
@@ -593,6 +608,7 @@ def test_metrics_render_matches_the_reference(pulled, nodes):
     for n in ns.values():  # one restore-tensor request on each plane
         assert _req(f"{n.proxy.url}/restore/{MODEL}/tensor/layer.0.b"
                     )[0] == 200
+        _route_timed(n.proxy)
     texts = {"port": tmetrics.render(proxy=ns["port"].proxy,
                                      store=ns["port"].store),
              "reference": jmetrics.render(proxy=ns["reference"].proxy,
