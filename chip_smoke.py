@@ -147,6 +147,25 @@ Phases, each printing one line:
    ``HTTPStorageReader`` from A is equal; ``orbax_compat`` writes layers
    0-1 as DCP files and reads them back onto the card, equal; SIGINT
    stops A with exit 0 within 30 s; seconds and GB/s of each step;
+10e. obs — on node B, started with a telemetry archive
+   (``DEMODEL_TELEMETRY_ARCHIVE``) and the export tier
+   (``trace.enable`` with a JSONL sink), the restored model booted on the
+   card: a streamed 512-token request (64 new tokens) carrying a W3C
+   ``traceparent``; while it decodes ``/debug/statusz`` shows the running
+   sequence, KV blocks in use and a ``serve.*`` span in flight, and
+   ``/debug/profile?seconds=1`` has stacks rooted at
+   ``serve.decode-step`` with wall and on-CPU samples; after it the
+   JSONL holds the server's root span under the client's trace and span
+   ids with the prefill and all 63 decode steps below it,
+   ``dump_chrome`` one ``X`` event a span, ``/debug/telemetry`` the
+   prefill and ``/debug/telemetry/history`` its windows; the pull
+   phase's 17-token request in turns under ``DEMODEL_OBS=0``, the
+   default tier and export, its tokens equal to the pull phase's each
+   time, K1 on ``wgmma_f16``; node B stops and a second
+   ``RestoreServer`` (another process) starts over the same archive,
+   whose history then reads one series from both pids; a flight-recorder
+   dump is complete JSON; the seconds of each request and of one statusz
+   scrape are printed with the card; the phase takes 30 s or less;
 11. tiny — ``LlamaConfig.tiny()`` (head dim 8) in f32, bf16 and f16:
    served through K1 by default (f32 on ``tf32x3_f32``, bf16 and f16 on
    ``wgmma_*`` at padded head dim 64), engine tokens equal to
@@ -282,11 +301,7 @@ def phase_device() -> str:
             "0", "false", "no", "off"):
         raise SystemExit("chip_smoke: DEMODEL_FLASH_ATTN=0 turns the kernel "
                          "off; unset it")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True
-    ).stdout.strip().splitlines()[0]
+    smi = _smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _say("device", card=smi, torch=torch.__version__,
@@ -2736,8 +2751,10 @@ def phase_restore(rig: _HubRig, pulled: dict) -> int:
     ``dcp.save`` through ``HTTPStorageWriter`` under another name sends
     0 bytes; ``restore`` from B (its Python server) is equal; ``dcp.load``
     through ``HTTPStorageReader`` from A is equal; the ``orbax_compat``
-    twin round-trips layers 0-1 on the card; SIGINT stops A with exit 0.
-    Returns the K1 launches.
+    twin round-trips layers 0-1 on the card; then the obs phase runs on
+    node B (:func:`phase_obs`; its archive and trace sink are set before
+    B starts); SIGINT stops A with exit 0. Returns the K1 launches of
+    both phases.
 
     The parent holds no handle on the pull phase's store while A runs
     (every earlier phase closed its own); A reads it and writes only its
@@ -2772,10 +2789,20 @@ def phase_restore(rig: _HubRig, pulled: dict) -> int:
     t0 = time.perf_counter()
     child, proxy, api, lines = _node_a(pulled["cfg"])
     row["node_start_s"] = time.perf_counter() - t0
+    # the obs phase's set-up, after A started (A keeps its own env)
+    obs = _obs_setup(rig)
     store_b = Store(Path(rig.tmp) / "restore-b" / "proxy")
     node_b = RestoreServer(RestoreRegistry(store_b), host="127.0.0.1").start()
     b_url = f"http://127.0.0.1:{node_b.port}"
-    engine = None
+    b_stopped: list[bool] = []
+
+    def stop_b() -> None:
+        if not b_stopped:
+            b_stopped.append(True)
+            node_b.stop()
+
+    engine = params = None
+    obs_launches = 0
     try:
         if json.loads(_get(f"{api}/restore/models")) != {"models": []}:
             raise AssertionError("restore: node A starts with models")
@@ -2826,7 +2853,6 @@ def phase_restore(rig: _HubRig, pulled: dict) -> int:
         engine.stop()
         serve.install(None)
         engine = None
-        del params
         try:
             _post(f"{api}/generate", {"prompt": pulled["prompt"]})
             a_status = 200
@@ -2900,13 +2926,18 @@ def phase_restore(rig: _HubRig, pulled: dict) -> int:
                                  f"{unequal[:5]}")
         row["dcp_files_tensors"] = len(back.arrays)
         del back, part, res
+
+        # 7. the observability plane on node B
+        obs_launches = phase_obs(b_url, params, mcfg, pulled, obs, stop_b)
+        params = None
     finally:
         if engine is not None:
             engine.stop()
             serve.install(None)
-        node_b.stop()
+        stop_b()
         store_b.close()
-        # 7. SIGINT stops node A
+        _obs_teardown()
+        # 8. SIGINT stops node A
         t0 = time.perf_counter()
         child.send_signal(signal.SIGINT)
         try:
@@ -2922,7 +2953,431 @@ def phase_restore(rig: _HubRig, pulled: dict) -> int:
     torch.cuda.empty_cache()
     _say("restore", model=f"{PULL_MODEL} widths, {PULL_LAYERS} layers, f16",
          **row)
+    return launches + obs_launches
+
+
+#: the obs phase's request: a 512-token prompt, 64 new tokens, streamed
+OBS_PROMPT = 512
+OBS_NEW = 64
+#: the tiers the pull phase's 17-token request is timed under, in turns
+OBS_TIERS = ("export", "observe", "off", "off", "observe", "export")
+#: the client's W3C trace context on that request
+OBS_TRACE = "4bf92f3577b34da6a3ce929d0e0e4736"
+OBS_PARENT = "00f067aa0ba902b7"
+#: how long the phase may take, and its restarted node may take to
+#: answer for both incarnations
+OBS_BUDGET_S = 30.0
+OBS_POLL_S = 20.0
+
+
+def _obs_setup(rig: _HubRig) -> dict:
+    """The obs phase's set-up, before node B starts: a telemetry archive
+    (``DEMODEL_TELEMETRY_ARCHIVE``) and the export tier with a JSONL
+    sink (``trace.enable``), both in a temporary directory."""
+    from demodel_tpu_torch.utils import trace
+
+    root = Path(rig.tmp) / "obs"
+    root.mkdir()
+    obs = {"dir": root, "archive": root / "archive",
+           "jsonl": root / "trace.jsonl"}
+    os.environ["DEMODEL_TELEMETRY_ARCHIVE"] = str(obs["archive"])
+    trace.enable(str(obs["jsonl"]))
+    return obs
+
+
+def _obs_teardown() -> None:
+    """Back to the default tier for the later phases: no sink, no
+    archive flusher (the sampling profiler stays, as on any node that
+    started a restore server)."""
+    from demodel_tpu_torch.utils import trace
+
+    os.environ.pop("DEMODEL_TELEMETRY_ARCHIVE", None)
+    os.environ.pop("DEMODEL_TRACE", None)
+    os.environ.pop("DEMODEL_OBS", None)
+    trace.reset()
+    retention = sys.modules.get("demodel_tpu_torch.utils.retention")
+    if retention is not None and retention.current() is not None:
+        retention.current().stop()
+
+
+class _Stream:
+    """One streamed ``/generate`` (NDJSON over chunked HTTP/1.1) read by
+    a thread: :meth:`first` waits for the first token, :meth:`finish`
+    for the end and returns the tokens."""
+
+    def __init__(self, url: str, prompt: list[int], n: int,
+                 headers: dict[str, str]):
+        import http.client
+
+        u = urllib.parse.urlsplit(url)
+        self.conn = http.client.HTTPConnection(u.hostname, u.port,
+                                               timeout=600)
+        self.t0 = time.perf_counter()
+        self.conn.request("POST", u.path, json.dumps(
+            {"prompt": prompt, "max_new_tokens": n, "stream": True}),
+            headers={"Content-Type": "application/json", **headers})
+        self.resp = self.conn.getresponse()
+        if self.resp.status != 200:
+            raise AssertionError(f"obs: streamed /generate answered "
+                                 f"{self.resp.status}")
+        self.tokens: list[int] = []
+        self.end: dict | None = None
+        self.secs = 0.0
+        self._first = threading.Event()
+        self._errors: list[BaseException] = []
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+
+    def _read(self) -> None:
+        try:
+            for line in iter(self.resp.readline, b""):
+                if not line.strip():
+                    continue
+                doc = json.loads(line)
+                if "token" in doc:
+                    self.tokens.append(doc["token"])
+                    self._first.set()
+                elif doc.get("done"):
+                    self.end = doc
+                else:
+                    raise AssertionError(f"obs: stream line {doc}")
+        except BaseException as exc:  # noqa: BLE001 - raised by finish()
+            self._errors.append(exc)
+        finally:
+            self.secs = time.perf_counter() - self.t0
+            self._first.set()
+
+    def first(self) -> None:
+        if not self._first.wait(600) or self._errors:
+            raise AssertionError(f"obs: no first token: {self._errors}")
+
+    def finish(self) -> list[int]:
+        self._thread.join(600)
+        self.conn.close()
+        if self._errors or self.end is None or \
+                self.end["tokens"] != self.tokens:
+            raise AssertionError(f"obs: stream ended {self.end}, "
+                                 f"{self._errors}")
+        return self.tokens
+
+
+def _jsonl_trace(path: Path, trace_id: str, timeout_s: float = 10.0
+                 ) -> list[dict]:
+    """The JSONL sink's records of ``trace_id`` once the server's root
+    span is among them (it finishes just after its response is
+    written); complete lines only."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        text = path.read_text() if path.exists() else ""
+        recs = [json.loads(line) for line in text.split("\n")[:-1]]
+        mine = [r for r in recs if r["trace"] == trace_id]
+        if any(r["name"] == "serve.restore" for r in mine) or \
+                time.monotonic() > deadline:
+            return mine
+        time.sleep(0.05)
+
+
+def _set_tier(tier: str, jsonl: Path) -> None:
+    """Switch this process's observability tier (``off``, ``observe`` or
+    ``export`` with its sink at ``jsonl``); the sampling profiler runs in
+    the last two only."""
+    from demodel_tpu_torch.utils import profiler, trace
+
+    os.environ.pop("DEMODEL_OBS", None)
+    os.environ.pop("DEMODEL_TRACE", None)
+    trace.reset()
+    if tier == "off":
+        os.environ["DEMODEL_OBS"] = "0"
+        trace.reset()
+        profiler.stop()
+    elif tier == "export":
+        trace.enable(str(jsonl))
+    if tier != "off" and profiler.ensure() is None:
+        raise AssertionError(f"obs: no profiler under {tier}")
+
+
+#: a second restore node over the obs archive, in a process of its own:
+#: it imports the port, starts its server over the store at ``argv[1]``
+#: when a line arrives on stdin, prints its port, and stops at stdin's end
+_SECOND_NODE = """
+import sys
+from demodel_tpu_torch.restore.server import RestoreRegistry, RestoreServer
+from demodel_tpu_torch.store import Store
+
+sys.stdin.readline()
+store = Store(sys.argv[1])
+node = RestoreServer(RestoreRegistry(store), host="127.0.0.1").start()
+print(node.port, flush=True)
+sys.stdin.read()
+node.stop()
+store.close()
+"""
+
+
+def phase_obs(b_url: str, params, mcfg, pulled: dict, obs: dict,
+              stop_b) -> int:
+    """The observability plane on node B (the port's ``RestoreServer``,
+    its archive and the export tier on since it started) with the pull
+    phase's model booted on the card. A streamed 512-token request with
+    64 new tokens carries a W3C ``traceparent``; while it decodes,
+    ``/debug/statusz`` shows it running (KV blocks in use, a ``serve.*``
+    span in flight, mode ``export``) and ``/debug/profile?seconds=1``
+    has stacks rooted at ``serve.*`` spans, with wall and on-CPU samples.
+    After it, the JSONL holds the server's root span under the client's
+    trace and span ids with ``serve.prefill`` and every
+    ``serve.decode-step`` below it; ``dump_chrome`` writes one ``X``
+    event a span; ``/debug/telemetry`` counts the prefill and
+    ``/debug/telemetry/history`` returns windows. The pull phase's
+    17-token request is then served in turns under ``DEMODEL_OBS=0``,
+    the default tier and export, its tokens equal to the pull phase's
+    every time; K1 runs on ``wgmma_f16``. Then node B stops, a second
+    node (another process, its interpreter started with the phase so
+    that its imports are not in the restart's time) starts over the same
+    archive, and its history reads one series from both pids; a recorder
+    dump is complete JSON. The seconds of the streamed request and of
+    each timed one, and one statusz scrape's milliseconds, are reported,
+    not gated. Returns the K1 launches (all on ``wgmma_f16``)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    second_store = Path(tempfile.mkdtemp(dir=obs["dir"]))
+    second = subprocess.Popen(
+        [sys.executable, "-c", _SECOND_NODE, str(second_store)],
+        cwd=Path(__file__).resolve().parent, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, text=True,
+        env={**os.environ, "DEMODEL_TELEMETRY_ARCHIVE": str(obs["archive"]),
+             "DEMODEL_TRACE": ""})
+    try:
+        return _obs_legs(b_url, params, mcfg, pulled, obs, stop_b, second,
+                         t_phase)
+    finally:
+        if second.poll() is None:
+            second.kill()
+            second.wait(timeout=NODE_STOP_S)
+
+
+def _obs_legs(b_url: str, params, mcfg, pulled: dict, obs: dict, stop_b,
+              second: subprocess.Popen, t_phase: float) -> int:
+    """:func:`phase_obs` once its second node's interpreter is starting."""
+    import torch
+
+    from demodel_tpu_torch import serve
+    from demodel_tpu_torch.ops import flash_attention as fa
+    from demodel_tpu_torch.utils import profiler, retention, trace
+    from demodel_tpu_torch.utils.retention import TelemetryArchive
+
+    prompt = _prompt(torch.Generator().manual_seed(31), OBS_PROMPT, VOCAB)
+    row: dict = {"prompt": OBS_PROMPT, "new_tokens": OBS_NEW}
+    engine = serve.boot(params, mcfg, device="cuda", kv_mb=1024,
+                        max_new_tokens=OBS_NEW, max_batch=4, queue_limit=8,
+                        model=PULL_MODEL)
+    _reset_k1()
+    n_requests = 0
+    try:
+        if trace.mode() != "export" or retention.current() is None \
+                or profiler.current() is None:
+            raise AssertionError(f"obs: node B runs mode {trace.mode()}, "
+                                 f"archive {retention.current()}, "
+                                 f"profiler {profiler.current()}")
+        # 1. the streamed request, and two reads while it decodes; a
+        # history read first (it flushes), so the telemetry ring and the
+        # archive hold a snapshot from before it
+        json.loads(_get(f"{b_url}/debug/telemetry/history?family=none"))
+        stream = _Stream(f"{b_url}/generate", prompt, OBS_NEW, {
+            "traceparent": f"00-{OBS_TRACE}-{OBS_PARENT}-01"})
+        n_requests += 1
+        stream.first()
+        # the capture starts at the first token, so its second covers
+        # the decode; the statusz scrape runs beside it
+        captured: dict = {}
+        capture = threading.Thread(target=lambda: captured.update(json.loads(
+            _get(f"{b_url}/debug/profile?seconds=1"))))
+        capture.start()
+        t0 = time.perf_counter()
+        statusz = json.loads(_get(f"{b_url}/debug/statusz"))
+        row["statusz_scrape_ms"] = (time.perf_counter() - t0) * 1e3
+        tokens_at_scrape = len(stream.tokens)
+        stream.finish()
+        capture.join(60)
+        prof = captured
+        row.update(stream_s=stream.secs, tokens_at_scrape=tokens_at_scrape)
+        gen = statusz["generation"]
+        inflight = [s["name"] for s in _flat(statusz["inflight_spans"])]
+        if gen.get("running", 0) < 1 or gen["kv"]["in_use_blocks"] < 1 or \
+                not any(n.startswith("serve.") for n in inflight) or \
+                statusz["trace"]["mode"] != "export":
+            raise AssertionError(f"obs: statusz during decode: generation "
+                                 f"{gen}, in flight {inflight}, mode "
+                                 f"{statusz['trace']['mode']}")
+        row["statusz"] = {"running": gen["running"],
+                          "kv_in_use_blocks": gen["kv"]["in_use_blocks"],
+                          "inflight": sorted(set(inflight)),
+                          "sections": len(statusz)}
+        # the capture's own handler thread sleeps under serve.restore: the
+        # engine thread's decode steps are what show the join
+        stacks = prof["stacks"]
+        wall = sum(s["wall"] for s in stacks)
+        cpu = sum(s["cpu"] for s in stacks)
+        roots: dict[str, list[int]] = {}
+        for s in stacks:
+            acc = roots.setdefault(s["stack"].split(";", 1)[0], [0, 0])
+            acc[0] += s["wall"]
+            acc[1] += s["cpu"]
+        if roots.get("serve.decode-step", [0])[0] < 1 or \
+                not 0 < cpu < wall:
+            raise AssertionError(f"obs: profile roots {roots}, wall {wall}, "
+                                 f"cpu {cpu}, cpu_mode {prof.get('cpu_mode')}"
+                                 f"; {row}")
+        row["profile"] = {"samples": prof["samples"], "wall": wall,
+                          "cpu": cpu, "cpu_mode": prof["cpu_mode"],
+                          "by_root": roots}
+
+        row["at_s"] = {"streamed": time.perf_counter() - t_phase}
+        # 2. after the request: the trace, Chrome, telemetry, history
+        recs = _jsonl_trace(obs["jsonl"], OBS_TRACE)
+        root = [r for r in recs if r["name"] == "serve.restore"]
+        if len(root) != 1 or root[0]["parent"] != OBS_PARENT:
+            raise AssertionError(f"obs: server root spans {root}")
+        below = {}
+        for r in recs:
+            if r["parent"] == root[0]["span"]:
+                below[r["name"]] = below.get(r["name"], 0) + 1
+        if below.get("serve.prefill") != 1 or \
+                below.get("serve.decode-step") != OBS_NEW - 1:
+            raise AssertionError(f"obs: under the root span {below}")
+        steps = sorted(r["dur"] for r in recs
+                       if r["name"] == "serve.decode-step")
+        row.update(trace_under_root=below,
+                   decode_step_ms={"median": steps[len(steps) // 2] * 1e3,
+                                   "max": steps[-1] * 1e3})
+        buffered = trace.buffer().snapshot()
+        chrome = obs["dir"] / "trace.chrome.json"
+        n_events = trace.dump_chrome(str(chrome), buffered)
+        with open(chrome) as f:
+            events = json.load(f)["traceEvents"]
+        n_x = sum(e["ph"] == "X" for e in events)
+        if n_x != len(buffered) or len(events) != n_events:
+            raise AssertionError(f"obs: chrome {n_x} X events for "
+                                 f"{len(buffered)} spans")
+        row["chrome"] = {"spans": len(buffered), "events": n_events}
+        tele = json.loads(_get(f"{b_url}/debug/telemetry"))
+        key = 'stage_duration_seconds{span="serve.prefill"}'
+        counts = {w: v["count"] for w, v in
+                  tele["windows"]["hist"].get(key, {}).items()}
+        if max(counts.values(), default=0) < 1:
+            raise AssertionError(f"obs: /debug/telemetry {key} {counts} "
+                                 f"over {tele['windows']['snapshots']} "
+                                 f"snapshots")
+        history = json.loads(_get(
+            f"{b_url}/debug/telemetry/history?family=stage_duration_seconds"
+            f"&label=span=serve.prefill"))
+        if history["records"] < 1 or key not in history["series"]:
+            raise AssertionError(f"obs: history {history['records']} "
+                                 f"records, {list(history['series'])}")
+        row.update(telemetry_prefill_counts=counts,
+                   history_records=history["records"])
+
+        row["at_s"]["checked"] = time.perf_counter() - t_phase
+        # 3. the pull phase's request under each tier, in turns
+        row["request_s"] = {tier: [] for tier in OBS_TIERS}
+        for tier in OBS_TIERS:
+            _set_tier(tier, obs["jsonl"])
+            t0 = time.perf_counter()
+            tokens = _generate_http(f"{b_url}/generate", pulled["prompt"],
+                                    PULL_NEW)
+            row["request_s"][tier].append(time.perf_counter() - t0)
+            n_requests += 1
+            if tokens != pulled["tokens"]:
+                raise AssertionError(f"obs: tokens {tokens} under {tier} vs "
+                                     f"the pull phase's {pulled['tokens']}")
+        if trace.mode() != "export":
+            raise AssertionError(f"obs: back in mode {trace.mode()}")
+        by_kernel = dict(fa.launches_by_kernel)
+        launches = sum(by_kernel.values())
+        if launches != PULL_LAYERS * n_requests or \
+                by_kernel["wgmma_f16"] != launches:
+            raise AssertionError(f"obs: K1 launches {by_kernel}, expected "
+                                 f"{PULL_LAYERS * n_requests} on wgmma_f16")
+        row.update(tokens=tokens, k1_launches_by_kernel=by_kernel)
+    finally:
+        engine.stop()
+        serve.install(None)
+
+    row["at_s"]["requests"] = time.perf_counter() - t_phase
+    # 4. restart: node B stops, a second node appends to the same archive
+    archive = retention.current()
+    archive.flush_once()
+    stop_b()
+    archive.stop()
+    t0 = time.perf_counter()
+    second.stdin.write("start\n")
+    second.stdin.flush()
+    api = f"http://127.0.0.1:{int(second.stdout.readline())}"
+    row["restart_start_s"] = time.perf_counter() - t0
+    key = 'stage_duration_seconds{span="serve.restore"}'
+    deadline = time.monotonic() + OBS_POLL_S
+    while True:
+        _get(f"{api}/restore/models")
+        doc = json.loads(_get(
+            f"{api}/debug/telemetry/history?family=stage_duration_seconds"
+            f"&label=span=serve.restore"))
+        pids = {r.get("pid") for r in
+                TelemetryArchive(obs["archive"]).records()
+                if key in r.get("hists", {})}
+        if {os.getpid(), second.pid} <= pids and \
+                doc["incarnations"] >= 2 and key in doc["series"]:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"obs: history after the restart: pids {pids} (this "
+                f"{os.getpid()}, node {second.pid}), incarnations "
+                f"{doc['incarnations']}, {list(doc['series'])}")
+        time.sleep(0.25)
+    row.update(restart_s=time.perf_counter() - t0,
+               history_incarnations=doc["incarnations"],
+               history_points=len(doc["series"][key]),
+               segments=doc["segments"])
+    second.stdin.close()
+    rc = second.wait(timeout=NODE_STOP_S)
+    if rc != 0:
+        raise AssertionError(f"obs: the second node exited {rc}")
+
+    row["at_s"]["restarted"] = time.perf_counter() - t_phase
+    # 5. the flight recorder
+    path = trace.dump_recorder("smoke", str(obs["dir"] / "recorder.json"))
+    with open(path) as f:
+        rec = json.load(f)
+    if rec.get("kind") != "demodel-flight-recorder" or not rec["spans"] \
+            or "profile" not in rec:
+        raise AssertionError(f"obs: recorder dump {sorted(rec)}")
+    row["recorder"] = {"spans": len(rec["spans"]),
+                       "dropped": rec["dropped"],
+                       "profile_stacks": len(rec["profile"]["stacks"])}
+    row["phase_s"] = time.perf_counter() - t_phase
+    row["card"] = _smi()
+    _say("obs", **row)
+    if row["phase_s"] > OBS_BUDGET_S:
+        raise AssertionError(f"obs: {row['phase_s']:.1f} s over "
+                             f"{OBS_BUDGET_S} s")
     return launches
+
+
+def _flat(trees: list[dict]) -> list[dict]:
+    """Span trees (``children`` lists) as one flat list."""
+    out = []
+    for t in trees:
+        out.append(t)
+        out.extend(_flat(t.get("children", ())))
+    return out
+
+
+def _smi() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0]
 
 
 def phase_tiny() -> dict[str, int]:

@@ -135,6 +135,7 @@ def _configure(L: ctypes.CDLL) -> None:
     sig("dm_store_quarantine", I, [P, CP])
     sig("dm_store_scrub", I, [P, I64, c.POINTER(I64), c.POINTER(I64),
                               c.POINTER(I)])
+    sig("dm_store_storage_stats", None, [P, c.POINTER(I64)])
     # streaming writer
     sig("dm_writer_append", I, [P, P, I64])
     sig("dm_writer_offset", I64, [P])
@@ -164,6 +165,7 @@ def _configure(L: ctypes.CDLL) -> None:
     sig("dm_proxy_stop", None, [P])
     sig("dm_proxy_free", None, [P])
     sig("dm_proxy_metrics", I, [P, CP, I])
+    sig("dm_proxy_profile", I, [P, I, I, I, CP, I])
     # the native restore map (``GET /restore/{model}/tensor/{name}``)
     sig("dm_proxy_register_tensor", None, [P, CP, CP, I64, I64])
     sig("dm_proxy_unregister_model", None, [P, CP])

@@ -139,6 +139,16 @@ class PeerGossip:
         if start:
             self._thread.start()
 
+    def describe(self) -> dict[str, dict]:
+        """The statusz view: each peer's freshness, never its key set."""
+        now = time.monotonic()
+        with self._lock:
+            return {
+                peer: {"version": v, "keys": len(k) if k is not None else 0,
+                       "age_sec": round(now - ts, 3), "ok": ok}
+                for peer, (v, k, ts, ok) in sorted(self._entries.items())
+            }
+
     def _fresh(self, peer: str,
                max_age: float) -> tuple[frozenset | None, bool] | None:
         with self._lock:
@@ -383,6 +393,9 @@ class PeerSet:
         def one_attempt() -> None:
             partial = store.partial_size(key)
             headers = {"Range": f"bytes={partial}-"} if partial > 0 else {}
+            # a raw streaming GET (resume lives here, not in the retry
+            # policy): carry the ambient span's traceparent on it
+            headers = trace.inject_headers(headers) or headers
             r = self.http.request("GET", f"{peer}/peer/object/{remote_key}",
                                   headers=headers, stream=True,
                                   timeout=max(self.timeout, 300))

@@ -46,10 +46,12 @@ def pipeline_apply(stage_fn: Callable, stages, xmb: torch.Tensor,
 
     ``stage_fn(stage_params, activation) -> activation``; ``stages`` is
     the stacked tree. Returns [M, b, ...]. ``mesh`` must be one device:
-    more raise (ROADMAP A7). With export tracing on (``DEMODEL_TRACE``),
-    the call runs under a ``compute.gpipe`` span that synchronises the
-    device so it times the compute, not the launches; off by default, so
-    default callers keep asynchronous launches."""
+    more raise (ROADMAP A7). Under the export tier of
+    :mod:`~demodel_tpu_torch.utils.trace` (``DEMODEL_TRACE`` or
+    ``trace.enable()``), the call runs under a ``compute.gpipe`` span that
+    synchronises the device so it times the compute, not the launches;
+    the default observe tier skips it, so default callers keep
+    asynchronous launches."""
     if mesh is not None:
         one_device(mesh, "pipeline_apply")
     n_stages = leaves(stages)[0].shape[0]

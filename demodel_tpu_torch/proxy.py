@@ -173,6 +173,29 @@ class ProxyServer:
                 return json.loads(buf.value.decode())
             cap = n + 1
 
+    def profile(self, seconds: float = 1.0, hz: int = 0,
+                fmt: str = "json") -> dict | str | None:
+        """A native-plane profile window: blocks ``seconds`` (the native
+        side clamps it to 5) while its sampler accumulates, then returns
+        the delta as a dict (``fmt="json"``) or collapsed text
+        (``fmt="collapsed"``). None when the profiler is off
+        (``DEMODEL_OBS=0``), as from ``utils.profiler.capture``."""
+        collapsed = 1 if fmt == "collapsed" else 0
+        # the native side bounds the document (top 256 stacks and a
+        # rollup), so 1 MiB suffices; grow and re-read if it ever does not
+        cap = 1 << 20
+        while True:
+            buf = ctypes.create_string_buffer(cap)
+            n = self._lib.dm_proxy_profile(
+                self._h, int(seconds * 1000), hz, collapsed, buf, cap)
+            if n == 0:
+                return None
+            if n < cap:
+                text = buf.value.decode()
+                return text if collapsed else json.loads(text)
+            cap = n + 1
+            seconds = 0.0  # the window already happened: re-read cumulative
+
     def wait(self) -> None:
         """Block until :meth:`stop`."""
         self._stop_evt.wait()

@@ -23,7 +23,19 @@ content-addressed store.
 - ``GET /metrics`` → the hub, the native proxy's counters and the
   store's gauges (:func:`~demodel_tpu_torch.utils.metrics.render`);
 - ``GET /swarm/{pull}/{host}/chunks`` and ``/chunk/{key}/{i}`` → a swarm
-  host's chunk board (404 where this process runs no swarm scheduler).
+  host's chunk board (404 where this process runs no swarm scheduler);
+- ``GET /debug/statusz`` → what the node is doing now
+  (:func:`~demodel_tpu_torch.utils.statusz.snapshot`, with ``server`` and
+  ``models``); ``GET /debug/telemetry`` → sliding-window rates and
+  quantiles (:func:`~demodel_tpu_torch.utils.metrics.telemetry_doc`);
+  ``GET /debug/telemetry/history?family=&label=&since=&until=`` → the
+  durable archive's series across restarts (404 without
+  ``DEMODEL_TELEMETRY_ARCHIVE``); ``GET /debug/profile?seconds=&hz=&
+  format=json|collapsed`` → a sampling-profiler capture (503 under
+  ``DEMODEL_OBS=0``).
+
+Every request runs under a ``serve.restore`` span whose parent is the
+client's W3C ``traceparent`` header when it sends one.
 
 Tensor bytes ride the native plane once :meth:`RestoreRegistry.
 attach_native` mirrors the registrations into a
@@ -43,11 +55,14 @@ import sys
 import threading
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlsplit
 
 from demodel_tpu_torch.formats import safetensors as st
 from demodel_tpu_torch.store import Store, key_for_uri
 from demodel_tpu_torch.utils import metrics, trace
-from demodel_tpu_torch.utils.env import advertise_host, scrub_interval_secs
+from demodel_tpu_torch.utils.env import (advertise_host,
+                                         scrub_interval_secs,
+                                         telemetry_archive_dir)
 from demodel_tpu_torch.utils.logging import get_logger
 from demodel_tpu_torch.utils.metrics import labeled
 
@@ -70,6 +85,7 @@ _TENSOR = re.compile(r"^/restore/(.+)/tensor/(.+)$")
 _SAFETENSORS = re.compile(r"^/restore/(.+)/safetensors$")
 _COMMIT = re.compile(r"^/restore/(.+)/commit$")
 _RANGE = re.compile(r"^bytes=([0-9]*)-([0-9]*)$")
+_JSON = "application/json"
 
 
 def _gen_engine():
@@ -506,11 +522,75 @@ class BaseHandler(BaseHTTPRequestHandler):
         self.wfile.write(b"0\r\n\r\n")
 
 
+def _query(path: str) -> dict[str, str]:
+    """The first value of each non-empty query parameter."""
+    return {k: v[0] for k, v in parse_qs(urlsplit(path).query).items()
+            if v and v[0]}
+
+
+def _number(q: dict[str, str], key: str, default, cast):
+    try:
+        return cast(q[key]) if key in q else default
+    except ValueError:
+        return default
+
+
+def _debug(path: str, registry: RestoreRegistry, proxy
+           ) -> tuple[int, bytes, str] | None:
+    """The ``/debug/*`` routes (None for any other path): status, body
+    and content type, with the reference's bodies."""
+    if path.startswith("/debug/telemetry/history"):
+        # an archive exists only if retention was started, so peek
+        # sys.modules instead of importing the module
+        retention = sys.modules.get("demodel_tpu_torch.utils.retention")
+        archive = retention.current() if retention is not None else None
+        if archive is None:
+            return (404, b'{"error":"no telemetry archive '
+                         b'(set DEMODEL_TELEMETRY_ARCHIVE)"}', _JSON)
+        q = _query(path)
+        # windows the background flusher has not reached yet, so the
+        # history is current up to this poll
+        archive.flush_once()
+        doc = archive.history(family=q.get("family"), label=q.get("label"),
+                              since=_number(q, "since", None, float),
+                              until=_number(q, "until", None, float))
+        doc["server"] = "restore"
+        return 200, json.dumps(doc, default=str).encode(), _JSON
+    if path == "/debug/telemetry":
+        doc = metrics.telemetry_doc(proxy=proxy)
+        doc["server"] = "restore"
+        return 200, json.dumps(doc, default=str).encode(), _JSON
+    if path.startswith("/debug/profile"):
+        from demodel_tpu_torch.utils import profiler
+
+        q = _query(path)
+        prof = profiler.capture(seconds=_number(q, "seconds", 1.0, float),
+                                hz=_number(q, "hz", 0, int))
+        if prof is None:
+            return 503, b'{"error":"profiler disabled (DEMODEL_OBS=0)"}', \
+                _JSON
+        prof["server"] = "restore"
+        if q.get("format") == "collapsed":
+            return (200, profiler.collapse(prof).encode(),
+                    "text/plain; charset=utf-8")
+        return 200, json.dumps(prof, default=str).encode(), _JSON
+    if path == "/debug/statusz":
+        from demodel_tpu_torch.utils import statusz
+
+        doc = statusz.snapshot(extra={"server": "restore",
+                                      "models": registry.models()})
+        return 200, json.dumps(doc, default=str).encode(), _JSON
+    return None
+
+
 def make_handler(registry: RestoreRegistry, proxy=None):
     class RestoreHandler(BaseHandler):
         def _traced(self, fn) -> None:
-            with trace.span("serve.restore", method=self.command,
-                            path=self.path):
+            # the server half of the cross-host trace: parented on the
+            # client's W3C traceparent when it sends one
+            with trace.span("serve.restore",
+                            remote_parent=self.headers.get("traceparent"),
+                            method=self.command, path=self.path):
                 fn()
 
         def do_HEAD(self) -> None:
@@ -531,6 +611,12 @@ def make_handler(registry: RestoreRegistry, proxy=None):
                     proxy=proxy, store=registry.store).encode(),
                     ctype="text/plain; version=0.0.4")
                 return
+            if self.path.startswith("/debug/"):
+                found = _debug(self.path, registry, proxy)
+                if found is not None:
+                    status, body, ctype = found
+                    self._send(status, body, ctype=ctype)
+                    return
             if self.path == "/restore/models":
                 self._send(200, json.dumps(
                     {"models": registry.models()}).encode())
@@ -660,6 +746,7 @@ class RestoreServer:
     def __init__(self, registry: RestoreRegistry, host: str = "0.0.0.0",
                  port: int = 0, proxy=None):
         self.registry = registry
+        self._proxy = proxy
         self.httpd = ThreadingHTTPServer((host, port),
                                          make_handler(registry, proxy))
         self.httpd.daemon_threads = True
@@ -669,6 +756,18 @@ class RestoreServer:
 
     def start(self) -> "RestoreServer":
         self._thread.start()
+        if telemetry_archive_dir():
+            # durable telemetry only when its knob is set: unset, the
+            # retention module is never imported
+            from demodel_tpu_torch.utils import retention
+
+            retention.ensure(proxy=self._proxy)
+        # the sampling profiler is always on at the observe tier (a node
+        # is profilable from curl without a restart); DEMODEL_OBS=0 makes
+        # this a no-op and no thread starts
+        from demodel_tpu_torch.utils import profiler
+
+        profiler.ensure()
         if scrub_interval_secs() > 0:
             # opt-in: a node without the interval set never imports it
             from demodel_tpu_torch import scrub

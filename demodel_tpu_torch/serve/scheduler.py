@@ -79,6 +79,10 @@ class Request:
         self.done = threading.Event()
         self.cancelled = threading.Event()
         self._stream: queue_mod.Queue = queue_mod.Queue()
+        #: the submitter's span (the server's ``serve.restore``) as a W3C
+        #: traceparent: the engine thread files this request's prefill
+        #: and decode steps under it, so they join the client's trace
+        self.traceparent = trace.traceparent()
 
     # -- engine side ----------------------------------------------------
     def _emit(self, tok: int) -> None:
@@ -342,7 +346,6 @@ class GenEngine:
             tokens = dict(self._tokens)
         return {
             "model": self.model,
-            "device": str(self.device),
             "running": running,
             "waiting": waiting,
             "max_batch": self.max_batch,
@@ -420,8 +423,8 @@ class GenEngine:
         HUB.observe("gen_queue_wait_seconds",
                     req.started_s - req.submitted_s)
         try:
-            with trace.span("serve.prefill", request=req.id,
-                            prompt=len(req.prompt)):
+            with trace.span("serve.prefill", remote_parent=req.traceparent,
+                            request=req.id, prompt=len(req.prompt)):
                 logits, kv = self._prefill(req.prompt)
                 self.pool.write_prompt(lease, kv)
                 tok0 = int(np.argmax(logits))
@@ -470,7 +473,11 @@ class GenEngine:
             k = np.pad(k, pad)
             v = np.pad(v, pad)
         try:
-            with trace.span("serve.decode-step", batch=B, width=width):
+            # one step serves the whole batch: it is filed under the
+            # trace of the oldest running request
+            with trace.span("serve.decode-step",
+                            remote_parent=batch[0].req.traceparent,
+                            batch=B, width=width):
                 out, nk, nv = self._decode(toks, k, v, lens)
         except Exception as exc:  # noqa: BLE001 - engine must survive
             log.error("decode step failed (batch=%d): %s", B, exc)

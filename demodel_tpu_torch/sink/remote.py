@@ -39,6 +39,7 @@ peer, the native library's multi-stream window fetch.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import re
 import threading
@@ -324,9 +325,13 @@ class PeerBlobReader:
         :class:`WindowAbort` carrying how many did."""
         got = 0
         try:
+            # the ambient window-read span's traceparent rides the raw
+            # streaming GET (resume lives in pread_into, not in a retry
+            # policy)
+            headers = trace.inject_headers(
+                {"Range": f"bytes={offset}-{offset + length - 1}"})
             r = self._client.request(
-                "GET", f"{peer}{self.path}",
-                headers={"Range": f"bytes={offset}-{offset + length - 1}"},
+                "GET", f"{peer}{self.path}", headers=headers,
                 stream=True, timeout=self.timeout)
             try:
                 r.raise_for_status()
@@ -665,6 +670,19 @@ class SwarmScheduler:
         self._client.close()
 
     # -- read surface ----------------------------------------------------
+    @contextlib.contextmanager
+    def holding(self, key: str, offset: int):
+        """Floor the reaper at ``offset`` of ``key`` for the block, as a
+        read in flight does: a reader that fetches one range window by
+        window keeps the chunks it has yet to read between windows."""
+        with self._lock:
+            self._active_reads.setdefault(key, []).append(offset)
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._active_reads[key].remove(offset)
+
     def peer_bytes_for(self, key: str) -> int:
         with self._lock:
             return self._peer_bytes.get(key, 0)
@@ -680,9 +698,7 @@ class SwarmScheduler:
                           f"outside {key} of {size} bytes")
         # an in-flight read floors the reaper: prefetch workers complete
         # out of order as the norm
-        with self._lock:
-            self._active_reads.setdefault(key, []).append(offset)
-        try:
+        with self.holding(key, offset):
             pos = 0
             while pos < length:
                 idx = (offset + pos) // self.chunk_bytes
@@ -692,9 +708,6 @@ class SwarmScheduler:
                 take = min(c_len - lo, length - pos)
                 view[pos:pos + take] = data[lo:lo + take]
                 pos += take
-        finally:
-            with self._lock:
-                self._active_reads[key].remove(offset)
         # completed-read high-water: a rare later re-read of a reaped
         # chunk degrades to one counted re-fetch, never a wrong byte
         with self._lock:
@@ -1125,6 +1138,10 @@ class SwarmBlobReader:
             return 0
         return self.scheduler.read_into(self.remote_key, view, offset)
 
+    def holding(self, offset: int):
+        """:meth:`SwarmScheduler.holding` for this file."""
+        return self.scheduler.holding(self.remote_key, offset)
+
 
 class PipelineFailure(OSError):
     """A mid-pipeline delivery failure carrying the tensors that did land
@@ -1202,7 +1219,7 @@ def _deliver_jobs_pipelined(jobs, mesh: Mesh, plan: ShardingPlan,
         reader, key, name, spec = job
         nbytes = spec.end - spec.start
         with trace.span("prefetch-fetch", tensor=name, bytes=nbytes,
-                        job=idx):
+                        job=idx), contextlib.ExitStack() as held:
             # the ticket wait + budget charge: the "waiting for RAM"
             # stage of a slow pull
             with trace.span("budget-wait", bytes=nbytes):
@@ -1215,6 +1232,12 @@ def _deliver_jobs_pipelined(jobs, mesh: Mesh, plan: ShardingPlan,
                     # charge before the bytes exist; released after place
                     budget.acquire(nbytes)
                     got = True
+                    if isinstance(reader, SwarmBlobReader):
+                        # floor the swarm's reaper at this tensor for the
+                        # whole fetch, before the next job's ticket: a
+                        # later job's finished windows must not free the
+                        # chunks this one reads between its windows
+                        held.enter_context(reader.holding(spec.start))
                 finally:
                     try:
                         with admit_cv:

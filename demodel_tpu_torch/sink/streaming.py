@@ -20,6 +20,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import weakref
 
 import torch
 
@@ -50,13 +51,16 @@ class ByteBudget:
     budget is admitted alone rather than deadlocking.
     """
 
-    def __init__(self, max_bytes: int):
+    def __init__(self, max_bytes: int, name: str = "sink"):
         self.max_bytes = max_bytes
+        self.name = name
         self._in_use = 0
         self.high_water = 0
         self.waiters = 0
         self._cv = threading.Condition()
         self._aborted = False
+        with _budget_registry_lock:
+            _budget_registry.add(self)
 
     @property
     def in_use(self) -> int:
@@ -89,6 +93,29 @@ class ByteBudget:
         with self._cv:
             self._aborted = True
             self._cv.notify_all()
+
+    def describe(self) -> dict:
+        """The statusz row: capacity, live charge, high-water, blocked
+        acquirers ("is the pull stuck on admission")."""
+        with self._cv:
+            return {"name": self.name, "max_bytes": self.max_bytes,
+                    "in_use_bytes": self._in_use,
+                    "high_water_bytes": self.high_water,
+                    "waiters": self.waiters, "aborted": self._aborted}
+
+
+#: weak set of live budgets, which statusz iterates; a budget that was
+#: collected (its pull finished) falls out on its own
+_budget_registry_lock = threading.Lock()
+_budget_registry: "weakref.WeakSet[ByteBudget]" = weakref.WeakSet()
+
+
+def budgets_snapshot() -> list[dict]:
+    """Live budgets, described: the statusz ``budgets`` section."""
+    with _budget_registry_lock:
+        budgets = list(_budget_registry)
+    return sorted((b.describe() for b in budgets),
+                  key=lambda d: str(d["name"]))
 
 
 class _Cancelled(Exception):
@@ -139,8 +166,7 @@ class StreamingSink:
         with self._worker_lock:
             if self._worker is None:
                 self._worker = threading.Thread(
-                    target=trace.wrap(self._run), daemon=True,
-                    name="sink-deliver")
+                    target=self._run, daemon=True, name="sink-deliver")
                 self._worker.start()
 
     # ---- producer side (fetch threads)
@@ -170,7 +196,13 @@ class StreamingSink:
             if not getattr(artifact, "budget_charged", False):
                 with trace.span("sink-budget-wait", file=name, bytes=nbytes):
                     self.budget.acquire(nbytes)
-        self._q.put((name, key, buffer, nbytes))
+        # the worker is another thread, outside the submitting span's
+        # contextvars: carry the parent across the queue as a traceparent
+        # so sink-deliver stitches into the pull's trace, and the
+        # head-sampling verdict with it (a sampled-out pull must not leak
+        # orphan sink-deliver roots from the worker side)
+        self._q.put((name, key, buffer, nbytes, trace.traceparent(),
+                     trace.subtree_suppressed()))
 
     # ---- consumer side
     def _set_err(self, e: BaseException) -> None:
@@ -188,13 +220,16 @@ class StreamingSink:
             item = self._q.get()
             if item is _DONE:
                 return
-            name, key, buffer, nbytes = item
+            name, key, buffer, nbytes, parent, suppressed = item
             try:
                 if self._get_err() is not None:
                     continue  # drain without working after first failure
                 try:
-                    with trace.span("sink-deliver", file=name,
-                                    bytes=nbytes) as sp:
+                    deliver_span = (trace.NOOP if suppressed else
+                                    trace.span("sink-deliver",
+                                               remote_parent=parent,
+                                               file=name, bytes=nbytes))
+                    with deliver_span as sp:
                         placed = deliver_file(self.store, name, key,
                                               self.mesh, self.plan,
                                               self.cast_to, buffer=buffer)

@@ -310,6 +310,21 @@ class Store:
                                       ctypes.byref(nbytes), ctypes.byref(mism))
         return bool(rc), objs.value, nbytes.value, mism.value
 
+    def storage_stats(self) -> dict:
+        """The storage-fault counters of this store (quarantines and
+        scrub progress), for the statusz ``storage`` section; empty once
+        the store is closed."""
+        if not self._h:
+            return {}
+        out = (ctypes.c_int64 * 4)()
+        self._lib.dm_store_storage_stats(self._h, out)
+        return {
+            "quarantined_total": out[0],
+            "scrub_objects_total": out[1],
+            "scrub_bytes_total": out[2],
+            "scrub_mismatch_total": out[3],
+        }
+
     def materialize(self, key: str, digest: str, meta: dict) -> None:
         """Publish already-stored bytes (located by content digest) under a
         new key via hardlink — content-address dedup, zero copy."""

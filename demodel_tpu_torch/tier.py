@@ -13,10 +13,14 @@ The host-RAM hot tier and the watermark read path (``TieredStore.read``)
 come with the slice that serves from the store; until then nothing is
 promoted into RAM, so ``enforce`` has only the disk tier to trim, and a
 chunk board's charge to :func:`ram_budget` has no hot object to evict.
+:func:`tiers_snapshot` describes every live :class:`TieredStore` for
+``/debug/statusz`` in the reference's shape (its RAM row holds no
+objects, its flights carry no watermark).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 import weakref
@@ -145,6 +149,23 @@ class SingleFlight:
             if self._flights.get(key) is flight:
                 del self._flights[key]
 
+    def in_flight(self) -> int:
+        with self._lock:
+            return len(self._flights)
+
+    def describe(self) -> list[dict[str, Any]]:
+        with self._lock:
+            flights = list(self._flights.items())
+        out = []
+        for key, f in flights:
+            with f.cv:
+                # no watermark: the port's flights do not stream the
+                # leader's progress to waiters
+                out.append({"key": key, "watermark": None,
+                            "waiters": f.waiters, "handoffs": f.handoffs,
+                            "leader_needed": f.leader_needed})
+        return out
+
     def do(self, key: str, fn: Callable[[], Any],
            timeout: float | None = None) -> Any:
         """Collapse concurrent ``fn`` calls for one key: the leader runs
@@ -202,15 +223,32 @@ class TieredStore:
     """The tier state of one store root: its single-flight registry and
     its budget enforcement."""
 
-    def __init__(self, store: Store):
+    def __init__(self, store: Store, name: str = "tier"):
         self.store = store
+        self.name = name
         self.flights = SingleFlight()
+        self.ram = ram_budget()
+        with _tier_registry_lock:
+            _tier_registry.add(self)
 
     def enforce(self) -> None:
         """Budget-driven eviction after a pull: the disk tier to
         ``DEMODEL_CACHE_MAX_GB`` via :meth:`Store.gc` (pinned keys
         shielded, ``store_evictions_total`` counted)."""
         enforce_disk_budget(self.store)
+
+    def describe(self) -> dict[str, Any]:
+        ram = self.ram.describe()
+        ram.update({"tier": "ram", "objects": 0, "bytes": 0})
+        max_gb = cache_max_gb()
+        return {"name": self.name,
+                "tiers": [ram, {"tier": "disk",
+                                "max_bytes": max_gb << 30 if max_gb else 0}],
+                "singleflight": {"in_flight": self.flights.in_flight(),
+                                 "flights": self.flights.describe()},
+                "storage": {"degraded": False, "degraded_since": 0.0,
+                            "degraded_entries": 0,
+                            **self.store.storage_stats()}}
 
 
 def enforce_disk_budget(store: Store) -> None:
@@ -224,6 +262,11 @@ def enforce_disk_budget(store: Store) -> None:
                      "use", evicted, freed / 1e6, total / 1e6)
 
 
+#: weak registry of live TieredStores, which statusz iterates (a
+#: collected tier falls out on its own)
+_tier_registry_lock = threading.Lock()
+_tier_registry: "weakref.WeakSet[TieredStore]" = weakref.WeakSet()
+
 #: process-shared tier per store root (every pull of one store must hit
 #: ONE flight registry); weak, so a finished pull's tier goes with it
 _shared_lock = threading.Lock()
@@ -236,6 +279,21 @@ def shared(store: Store) -> TieredStore:
         ref = _shared.get(root)
         tier = ref() if ref is not None else None
         if tier is None:
-            tier = TieredStore(store)
+            tier = TieredStore(store, name=f"tier:{os.path.basename(root)}")
             _shared[root] = weakref.ref(tier)
         return tier
+
+
+def tiers_snapshot() -> list[dict[str, Any]]:
+    """Live tier state for ``/debug/statusz`` (read-only): each tier's
+    occupancy against its budget and its in-flight single-flight
+    leaders; the RAM budget alone when chunk boards charged it before any
+    TieredStore existed."""
+    with _tier_registry_lock:
+        tiers = list(_tier_registry)
+    out = [t.describe() for t in sorted(tiers, key=lambda t: t.name)]
+    budget = _ram_budget
+    if budget is not None and not out:
+        out.append({"name": "ram-budget", "tiers": [budget.describe()],
+                    "singleflight": {"in_flight": 0, "flights": []}})
+    return out

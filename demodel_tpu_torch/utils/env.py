@@ -188,3 +188,46 @@ def scrub_rate_mb_s() -> int:
     """``DEMODEL_SCRUB_RATE_MB_S``: the scrubber's re-digest budget in MB
     per second; each slice reads at most ``rate × interval`` bytes."""
     return env_int("DEMODEL_SCRUB_RATE_MB_S", 8, minimum=1)
+
+
+def store_reprobe_secs() -> int:
+    """``DEMODEL_STORE_REPROBE_SECS``: how often a node in degraded
+    read-through mode re-probes the store with a small real write (10)."""
+    return env_int("DEMODEL_STORE_REPROBE_SECS", 10, minimum=1)
+
+
+def telemetry_archive_dir() -> str:
+    """``DEMODEL_TELEMETRY_ARCHIVE``: directory of the durable telemetry
+    archive (:mod:`demodel_tpu_torch.utils.retention`); unset disables
+    the retention plane (no import, no flusher thread)."""
+    return os.environ.get("DEMODEL_TELEMETRY_ARCHIVE", "").strip()
+
+
+def telemetry_retain_mb() -> int:
+    """``DEMODEL_TELEMETRY_RETAIN_MB``: byte budget of the archived
+    segments; the oldest are evicted past it (64)."""
+    return env_int("DEMODEL_TELEMETRY_RETAIN_MB", 64, minimum=1)
+
+
+def telemetry_retain_hours() -> int:
+    """``DEMODEL_TELEMETRY_RETAIN_HOURS``: age budget of the archived
+    segments (72)."""
+    return env_int("DEMODEL_TELEMETRY_RETAIN_HOURS", 72, minimum=1)
+
+
+def profile_hz() -> int:
+    """``DEMODEL_PROFILE_HZ``: the sampling profiler's rate (19, off the
+    10/100 Hz beat of periodic work)."""
+    return env_int("DEMODEL_PROFILE_HZ", 19, minimum=1)
+
+
+def profile_max_stacks() -> int:
+    """``DEMODEL_PROFILE_MAX_STACKS``: distinct folded stacks the
+    profiler keeps; past it new stacks fold into ``(other)`` (2048)."""
+    return env_int("DEMODEL_PROFILE_MAX_STACKS", 2048, minimum=16)
+
+
+def profile_window_s() -> int:
+    """``DEMODEL_PROFILE_WINDOW_S``: seconds per profile window rolled
+    into the telemetry archive (60)."""
+    return env_int("DEMODEL_PROFILE_WINDOW_S", 60, minimum=5)

@@ -29,6 +29,7 @@ from demodel_tpu_torch import native
 from demodel_tpu_torch import pki as tpki
 from demodel_tpu_torch.config import ProxyConfig as TConfig
 from demodel_tpu_torch.store import Store as TStore
+from .torch_refnative import reference_native_lib  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

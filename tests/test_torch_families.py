@@ -51,6 +51,7 @@ from .hf_families import (
     repo_files,
 )
 from .servers import FakeUpstream
+from .torch_refnative import reference_native_lib  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -53,6 +53,7 @@ from .fake_registries import (build_ollama_model, make_hf_handler,
                               make_ollama_handler)
 from .servers import FakeUpstream
 from .test_torch_pull import MODEL, _llama_files
+from .torch_refnative import reference_native_lib  # noqa: F401
 
 torch.set_num_threads(1)
 

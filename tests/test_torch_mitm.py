@@ -33,6 +33,7 @@ from demodel_tpu_torch.store import Store as TStore
 
 from .servers import FakeUpstream
 from .test_proxy_e2e import _BODY, _Handler
+from .torch_refnative import reference_native_lib  # noqa: F401
 
 #: the response headers held equal between the packages
 HEADERS = ("X-Demodel-Cache", "Content-Length", "Content-Range", "ETag",

@@ -34,6 +34,7 @@ from demodel_tpu_torch.store import key_for_uri
 
 from .fake_registries import build_ollama_model, make_ollama_handler
 from .servers import FakeUpstream
+from .torch_refnative import reference_native_lib  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -49,6 +49,7 @@ from .fake_registries import build_hf_repo, make_hf_handler
 from .servers import FakeUpstream
 from .test_peer_degrade import _ConfigurableHandler
 from .test_torch_pull import MODEL, _llama_files
+from .torch_refnative import reference_native_lib  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -46,6 +46,7 @@ from .test_torch_ollama import MODEL as OLLAMA_MODEL
 from .test_torch_ollama import REPO as OLLAMA_REPO
 from .test_torch_ollama import _model as _ollama_model
 from .test_torch_pull import MODEL, _llama_files
+from .torch_refnative import reference_native_lib  # noqa: F401
 
 torch.set_num_threads(1)
 

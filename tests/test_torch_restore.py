@@ -17,8 +17,10 @@ import http.client
 import json
 import shutil
 import socket
+import threading
 import time
 import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import pytest
@@ -31,8 +33,13 @@ from demodel_tpu.proxy import ProxyServer as JProxy
 from demodel_tpu.restore import client as jclient
 from demodel_tpu.restore import server as jserver
 from demodel_tpu.store import Store as JStore
+from demodel_tpu.parallel import peer as jpeer
+from demodel_tpu.sink import remote as jremote
 from demodel_tpu.utils import faults as jfaults
 from demodel_tpu.utils import metrics as jmetrics
+from demodel_tpu.utils import profiler as jprofiler
+from demodel_tpu.utils import retention as jretention
+from demodel_tpu.utils import trace as jtrace
 from demodel_tpu_torch import delivery as tdelivery
 from demodel_tpu_torch import scrub as tscrub
 from demodel_tpu_torch import serve as tserve
@@ -40,18 +47,24 @@ from demodel_tpu_torch.config import ProxyConfig as TConfig
 from demodel_tpu_torch.formats import safetensors as tst
 from demodel_tpu_torch.models import llama as tl
 from demodel_tpu_torch.parallel import make_mesh
+from demodel_tpu_torch.parallel import peer as tpeer
 from demodel_tpu_torch.proxy import ProxyServer as TProxy
 from demodel_tpu_torch.restore import client as tclient
 from demodel_tpu_torch.restore import server as tserver
 from demodel_tpu_torch.restore.orbax_http import save_state_dict
 from demodel_tpu_torch.serve import http as thttp
+from demodel_tpu_torch.sink import remote as tremote
 from demodel_tpu_torch.store import Store as TStore
 from demodel_tpu_torch.store import key_for_uri
 from demodel_tpu_torch.utils import faults as tfaults
 from demodel_tpu_torch.utils import metrics as tmetrics
+from demodel_tpu_torch.utils import profiler as tprofiler
+from demodel_tpu_torch.utils import retention as tretention
+from demodel_tpu_torch.utils import trace as ttrace
 
 from .fake_registries import build_hf_repo, make_hf_handler
 from .servers import FakeUpstream
+from .torch_refnative import reference_native_lib  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -72,6 +85,9 @@ def _hygiene(monkeypatch):
     yield
     for mod in (tfaults, jfaults):
         mod.PeerHealth.reset_shared()
+    # each RestoreServer.start() starts its package's sampling profiler
+    for mod in (tprofiler, jprofiler):
+        mod.stop()
 
 
 @pytest.fixture(scope="module")
@@ -149,7 +165,8 @@ def _req(url: str, method: str = "GET", body: bytes | None = None,
     u = urllib.parse.urlsplit(url)
     conn = http.client.HTTPConnection(u.hostname, u.port, timeout=30)
     try:
-        conn.request(method, u.path, body=body, headers=headers or {})
+        target = f"{u.path}?{u.query}" if u.query else u.path
+        conn.request(method, target, body=body, headers=headers or {})
         r = conn.getresponse()
         return r.status, r.headers, r.read()
     finally:
@@ -235,7 +252,8 @@ def test_manifest_equals_the_reference(pulled, nodes, monkeypatch, case,
 
 def test_unknown_model_and_tensor_404(pulled, nodes):
     """Unknown names 404 on both nodes (a tensor request resolves the
-    model lazily); the port's ``/debug/*`` routes 404 until A6."""
+    model lazily); ``/debug/statusz`` answers on both, an unknown
+    ``/debug/*`` route 404s on both."""
     for pkg in PKG:
         n = nodes(pkg, pulled[pkg])
         assert json.loads(_req(f"{n.url}/restore/models")[2]) == {
@@ -244,9 +262,11 @@ def test_unknown_model_and_tensor_404(pulled, nodes):
         assert _req(f"{n.url}/restore/{MODEL}/tensor/ghost")[0] == 404
         assert json.loads(_req(f"{n.url}/restore/models")[2]) == {
             "models": [MODEL]}
-    assert _req(f"{n.url}/debug/statusz")[0] == 200  # the reference's
-    assert _req(f"{nodes('port', pulled['port']).url}/debug/statusz"
-                )[0] == 404
+    port = nodes("port", pulled["port"]).url
+    for url in (n.url, port):
+        assert _req(f"{url}/debug/statusz")[0] == 200
+        assert _req(f"{url}/debug/ghost")[:3:2] == (404,
+                                                  b'{"error":"not found"}')
 
 
 # ----------------------------------------------------------------- Range
@@ -693,3 +713,282 @@ def test_restore_server_runs_the_scrubber(tmp_path, monkeypatch):
         finally:
             srv.stop()
         assert tscrub.snapshot() == []
+
+
+# ------------------------------------------------------------- /debug/*
+
+OBS = {"port": (ttrace, tprofiler, tretention),
+       "reference": (jtrace, jprofiler, jretention)}
+
+
+@pytest.fixture()
+def obs_env(monkeypatch, tmp_path):
+    """Fresh trace state, no archive and no profiler in either package;
+    the same on the way out."""
+    for var in ("DEMODEL_TRACE", "DEMODEL_OBS", "DEMODEL_TELEMETRY_ARCHIVE"):
+        monkeypatch.setenv(var, "")
+    monkeypatch.setenv("DEMODEL_RECORDER_DIR", str(tmp_path))
+
+    def reset():
+        for tr, prof, ret in OBS.values():
+            tr.reset()
+            prof.stop()
+            ret._reset_for_tests()
+
+    reset()
+    yield monkeypatch
+    reset()
+
+
+def _doc(node, path: str, **kw):
+    status, headers, body = _req(f"{node.url}{path}", **kw)
+    return status, headers.get("Content-Type"), body
+
+
+def test_debug_routes_answer_as_the_reference(pulled, nodes, obs_env):
+    """statusz, telemetry and profile answer 200 on both packages' nodes
+    with the same keys; the history route 404s with the reference's body
+    while no archive runs."""
+    got = {}
+    for pkg in PKG:
+        n = nodes(pkg, pulled[pkg], register=True)
+        statusz = _doc(n, "/debug/statusz")
+        tele = _doc(n, "/debug/telemetry")
+        prof = _doc(n, "/debug/profile?seconds=0.3&hz=97")
+        collapsed = _doc(n, "/debug/profile?seconds=0&format=collapsed")
+        history = _doc(n, "/debug/telemetry/history?family=x")
+        got[pkg] = (statusz, tele, prof, collapsed, history)
+    for pkg, (statusz, tele, prof, collapsed, history) in got.items():
+        assert statusz[:2] == tele[:2] == prof[:2] == (200, "application/json")
+        assert collapsed[:2] == (200, "text/plain; charset=utf-8")
+        assert history[0] == 404
+        doc = json.loads(statusz[2])
+        assert doc["server"] == "restore" and doc["models"] == [MODEL]
+        assert doc["statusz"] == 4 and doc["profiler"]["running"]
+        p = json.loads(prof[2])
+        assert p["server"] == "restore" and p["hz"] == 97
+        assert p["samples"] > 0 and p["plane"] == "python"
+        assert all(" " in line for line in
+                   collapsed[2].decode().splitlines())
+    port, ref = got["port"], got["reference"]
+    assert port[4] == ref[4] == (
+        404, "application/json",
+        b'{"error":"no telemetry archive (set DEMODEL_TELEMETRY_ARCHIVE)"}')
+    for i in range(3):
+        assert sorted(json.loads(port[i][2])) == sorted(json.loads(ref[i][2]))
+    assert sorted(json.loads(port[1][2])["windows"]) == \
+        sorted(json.loads(ref[1][2])["windows"])
+
+
+def test_profile_answers_503_under_obs_off(pulled, nodes, obs_env):
+    obs_env.setenv("DEMODEL_OBS", "0")
+    for tr, _, _ in OBS.values():
+        tr.reset()
+    replies = []
+    for pkg in PKG:
+        n = nodes(pkg, pulled[pkg])
+        replies.append(_doc(n, "/debug/profile?seconds=0.1"))
+        statusz = json.loads(_doc(n, "/debug/statusz")[2])
+        assert statusz["trace"]["mode"] == "off"
+        assert statusz["profiler"] is None and statusz["inflight_spans"] == []
+    assert replies[0] == replies[1] == (
+        503, "application/json",
+        b'{"error":"profiler disabled (DEMODEL_OBS=0)"}')
+    assert tprofiler.current() is None
+
+
+def test_history_reads_the_archive_across_packages(pulled, nodes, obs_env,
+                                                   tmp_path):
+    """With ``DEMODEL_TELEMETRY_ARCHIVE`` set each node starts its
+    package's archive at ``start``; the history route flushes, then
+    answers the series; each package's history of the other's archive is
+    the same document."""
+    roots = {}
+    for pkg in PKG:
+        roots[pkg] = tmp_path / f"arch-{pkg}"
+        obs_env.setenv("DEMODEL_TELEMETRY_ARCHIVE", str(roots[pkg]))
+        n = nodes(pkg, pulled[pkg])
+        ret = OBS[pkg][2]
+        assert ret.current() is not None
+        for _ in range(3):
+            _req(f"{n.url}/restore/models")
+            ret.current().flush_once()
+            time.sleep(0.3)
+        status, ctype, body = _doc(
+            n, "/debug/telemetry/history?family=stage_duration_seconds"
+               "&label=span=serve.restore")
+        assert (status, ctype) == (200, "application/json")
+        doc = json.loads(body)
+        assert doc["server"] == "restore" and doc["records"] >= 1
+        assert list(doc["series"]) == [
+            'stage_duration_seconds{span="serve.restore"}']
+        ret.current().stop()
+    for root in roots.values():
+        docs = [OBS[p][2].TelemetryArchive(root).history() for p in PKG]
+        assert docs[0] == docs[1] and docs[0]["records"] >= 1
+
+
+def _await_spans(tr, name: str, n: int, timeout_s: float = 10.0):
+    """The first ``n`` finished ``name`` spans in ``tr``'s recorder (a
+    server span finishes just after its response is written)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = [r for r in tr.recorder().snapshot() if r["name"] == name]
+        if len(got) >= n or time.monotonic() > deadline:
+            return got[:n]
+        time.sleep(0.01)
+
+
+def test_serve_restore_joins_the_client_trace(pulled, nodes, obs_env):
+    """A request carrying a W3C traceparent runs under a ``serve.restore``
+    span of the client's trace, parented on the client's span, on both
+    packages' nodes."""
+    tp_trace, tp_span = "4bf92f3577b34da6a3ce929d0e0e4736", "00f067aa0ba902b7"
+    for pkg in PKG:
+        n = nodes(pkg, pulled[pkg])
+        tr = OBS[pkg][0]
+        assert _req(f"{n.url}/restore/models",
+                    headers={"traceparent": f"00-{tp_trace}-{tp_span}-01"}
+                    )[0] == 200
+        _req(f"{n.url}/restore/models", headers={"traceparent": "junk"})
+        mine = _await_spans(tr, "serve.restore", 2)
+        joined = [r for r in mine if r["trace"] == tp_trace]
+        fresh = [r for r in mine if r["trace"] != tp_trace]
+        assert [r["parent"] for r in joined] == [tp_span]
+        assert [r["parent"] for r in fresh] == [None]
+        assert joined[0]["attrs"] == {"method": "GET",
+                                      "path": "/restore/models"}
+
+
+def test_generate_spans_join_the_client_trace(pulled, nodes, obs_env):
+    """The engine thread files a request's prefill and decode steps under
+    the server span of that request, so they join the client's trace."""
+    tp_trace, tp_span = "0af7651916cd43dd8448eb211c80319c", "b7ad6b7169203331"
+    n = nodes("port", pulled["port"])
+    cfg = tl.LlamaConfig.tiny()
+    params = tl.init_params(torch.Generator().manual_seed(5), cfg,
+                            device="cpu")
+    engine = tserve.boot(params, cfg, device="cpu", max_batch=2,
+                         queue_limit=4, max_new_tokens=8, kv_mb=4)
+    try:
+        status, _, body = _req(
+            n.url + "/generate", "POST",
+            json.dumps({"prompt": [1, 2, 3], "max_new_tokens": 4}).encode(),
+            headers={"traceparent": f"00-{tp_trace}-{tp_span}-01"})
+    finally:
+        tserve.install(None)
+        engine.stop()
+    assert status == 200 and len(json.loads(body)["tokens"]) == 4
+    (root,) = _await_spans(ttrace, "serve.restore", 1)
+    assert (root["trace"], root["parent"]) == (tp_trace, tp_span)
+    below = [r for r in ttrace.recorder().snapshot()
+             if r["name"] in ("serve.admit", "serve.prefill",
+                              "serve.decode-step")]
+    assert sorted({r["name"] for r in below}) == [
+        "serve.admit", "serve.decode-step", "serve.prefill"]
+    assert all(r["trace"] == tp_trace and r["parent"] == root["span"]
+               for r in below)
+    assert sum(r["name"] == "serve.decode-step" for r in below) == 3
+
+
+# ------------------------------------- traceparent on the peer requests
+
+
+class _RecordingPeer:
+    """A peer that serves one object on ``/peer/object/{key}`` (Range
+    aware) and records each request's path, Range and traceparent."""
+
+    def __init__(self, body: bytes):
+        self.body = body
+        self.seen: list[tuple[str, str | None, str | None]] = []
+        peer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                return
+
+            def do_GET(self):
+                peer.seen.append((self.path, self.headers.get("Range"),
+                                  self.headers.get("traceparent")))
+                start, end = 0, len(peer.body)
+                rng = self.headers.get("Range")
+                if rng:
+                    a, _, b = rng[len("bytes="):].partition("-")
+                    start, end = int(a), (int(b) + 1 if b else end)
+                data = peer.body[start:end]
+                self.send_response(206 if rng else 200)
+                if rng:
+                    self.send_header("Content-Range", f"bytes {start}-"
+                                     f"{end - 1}/{len(peer.body)}")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+@pytest.mark.parametrize("pkg", list(PKG))
+def test_peer_requests_carry_the_traceparent(pkg, tmp_path, obs_env):
+    """``parallel/peer``'s streamed object GET and ``sink/remote``'s
+    window GET (the Python transports) carry the ambient span's
+    traceparent, in both packages."""
+    tr = OBS[pkg][0]
+    peer_mod, remote_mod = ((tpeer, tremote) if pkg == "port"
+                            else (jpeer, jremote))
+    store_cls = PKG[pkg][0]
+    body = np.random.default_rng(3).bytes(100_000)
+    key = key_for_uri("https://hub.example/org/m/resolve/main/w.bin")
+    fake = _RecordingPeer(body)
+    try:
+        with store_cls(tmp_path / "s") as store, tr.span("pull") as root:
+            peer_mod.PeerSet([fake.url])._stream_object_into(
+                store, fake.url, key, key, hashlib.sha256(body).hexdigest(),
+                {"uri": "x", "size": len(body)})
+            assert store.get(key) == body
+            reader = remote_mod.PeerBlobReader(fake.url, key, len(body))
+            out = np.empty(4096, dtype=np.uint8)
+            assert reader.pread_into(key, out, 1000) == 4096
+            assert out.tobytes() == body[1000:5096]
+    finally:
+        fake.close()
+    spans = {r["name"]: r for r in tr.recorder().snapshot()}
+    (obj_path, obj_range, obj_tp), (win_path, win_range, win_tp) = fake.seen
+    assert obj_path == f"/peer/object/{key}" and obj_range is None
+    assert win_range == "bytes=1000-5095"
+    assert tr.parse_traceparent(obj_tp) == (root.trace_id,
+                                            spans["peer-stream"]["span"])
+    assert tr.parse_traceparent(win_tp) == (root.trace_id,
+                                            spans["window-read"]["span"])
+
+
+def test_native_profile_and_telemetry_equal_the_reference(pulled, nodes,
+                                                          obs_env):
+    """``ProxyServer.profile`` over ``dm_proxy_profile`` answers as the
+    reference's wrapper (JSON and collapsed), and with the native plane
+    attached ``/debug/telemetry`` carries its scrape-diffed mirror."""
+    got = {}
+    for pkg in PKG:
+        n = nodes(pkg, pulled[pkg], native="127.0.0.1", register=True)
+        for _ in range(3):
+            _req(f"{n.proxy.url}/restore/{MODEL}/tensor/"
+                 f"model.embed_tokens.weight")
+        prof = n.proxy.profile(seconds=0.3, hz=200)
+        collapsed = n.proxy.profile(seconds=0.0, fmt="collapsed")
+        tele = json.loads(_doc(n, "/debug/telemetry")[2])
+        got[pkg] = (prof, collapsed, tele)
+    for prof, collapsed, tele in got.values():
+        assert prof["plane"] == "native" and prof["samples"] >= 0
+        assert isinstance(collapsed, str)
+        assert all(" " in line for line in collapsed.splitlines())
+        assert sorted(tele) == ["native", "pid", "server", "telemetry",
+                                "time", "windows"]
+    port, ref = got["port"], got["reference"]
+    assert sorted(port[0]) == sorted(ref[0])
+    assert sorted(port[2]["native"]) == sorted(ref[2]["native"])

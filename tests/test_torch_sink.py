@@ -27,6 +27,7 @@ from demodel_tpu_torch.formats import safetensors as tst
 from demodel_tpu_torch.parallel import mesh as tmesh
 from demodel_tpu_torch.sink import (ShardingPlan, deliver_gguf,
                                     deliver_safetensors, hbm)
+from .torch_refnative import reference_native_lib  # noqa: F401
 
 jg = importlib.import_module("demodel_tpu.formats.gguf")
 jst = importlib.import_module("demodel_tpu.formats.safetensors")

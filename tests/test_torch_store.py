@@ -26,6 +26,7 @@ import torch
 from demodel_tpu import store as jstore
 from demodel_tpu_torch import native as tnative
 from demodel_tpu_torch import store as tstore
+from .torch_refnative import reference_native_lib  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -217,6 +218,52 @@ def test_loaded_library_lives_in_the_port_build_dir():
     path = Path(tnative.lib()._name)
     assert path.parent == tnative.BUILD_DIR
     assert REPO / "native" not in path.parents
+
+
+_REFERENCE_LOAD = """
+import json, sys
+from pathlib import Path
+from demodel_tpu import native as jnative
+from demodel_tpu.store import Store
+from tests.torch_refnative import reference_native
+with reference_native():
+    with Store(Path(sys.argv[1])) as s:
+        s.put("k", b"x" * 4096)
+        loaded = s._lib._name
+    maps = open("/proc/self/maps").read()
+print(json.dumps({"loaded": loaded, "restored": jnative._lib is None,
+                  "so": str(jnative._SO),
+                  "mapped_native_build": "native/build/" in maps}))
+"""
+
+
+def _mtimes(path: Path) -> dict[str, int]:
+    return {str(p): p.stat().st_mtime_ns for p in path.rglob("*")} \
+        if path.exists() else {}
+
+
+def test_reference_store_loads_its_own_copy(tmp_path):
+    """A reference ``Store`` built inside the helper's scope (in a fresh
+    interpreter, so nothing else has loaded the library) maps the copy
+    under ``build/torch_kernels/reference/``, never ``native/build/``,
+    which stays as it was; leaving the scope restores the loader."""
+    import json
+    import subprocess
+    import sys
+
+    from .torch_refnative import REFERENCE_DIR
+
+    before = _mtimes(REPO / "native" / "build")
+    res = subprocess.run([sys.executable, "-c", _REFERENCE_LOAD,
+                          str(tmp_path / "s")], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-2000:]
+    got = json.loads(res.stdout.splitlines()[-1])
+    assert Path(got["loaded"]) == REFERENCE_DIR / tnative.LIB_NAME
+    assert not got["mapped_native_build"]
+    assert got["restored"]
+    assert Path(got["so"]) == REPO / "native" / "build" / tnative.LIB_NAME
+    assert _mtimes(REPO / "native" / "build") == before
 
 
 def test_build_raises_without_a_compiler(monkeypatch, tmp_path):

@@ -43,6 +43,7 @@ from demodel_tpu_torch.utils import metrics as tmetrics
 
 from .test_fault_injection import MODEL as CHAOS_MODEL
 from .test_fault_injection import _seed_store
+from .torch_refnative import reference_native_lib  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -406,6 +407,36 @@ def test_reaper_frees_boards_and_reaped_chunks_reread(tmp_path):
         assert hub.get("swarm_chunks_unreaped_total") > 0
     finally:
         _close(scheds, servers.values())
+        origin.stop()
+
+
+def test_a_held_range_floors_the_reaper(tmp_path):
+    """A fetch that reads one tensor window by window holds its start
+    (``holding``) for the whole fetch: a later range read to its end
+    must not let the reaper free the chunks the held fetch has yet to
+    read. Solo board: the reaper gates on consumption alone."""
+    origin, files = _seed_origin(tmp_path, n_files=1, mb=3, tag="hold")
+    servers, parts = _servers(tmp_path, ("hA",))
+    s = tremote.SwarmScheduler("thold", "hA", parts)
+    f = files[0]
+    try:
+        s.add_file(f["key"], f["size"], tremote.PeerBlobReader(
+            origin.url, f["key"], f["size"]))
+        reader = tremote.SwarmBlobReader(s, f["key"], f["size"], None)
+        s.start()
+        s.fetch_all()
+        tail = bytearray(1 << 20)
+        with reader.holding(0):
+            reader.pread_into(f["key"], tail, 2 << 20)
+            assert s._reap_candidates() == []
+            assert all(s.board.get(f["key"], i) is not None
+                       for i in range(3))
+        # released: every chunk is reapable (or the reaper already took it)
+        chunks = {(f["key"], i) for i in range(3)}
+        assert set(s._reap_candidates()) | {
+            c for c in chunks if s.board.reaped(*c)} == chunks
+    finally:
+        _close([s], servers.values())
         origin.stop()
 
 

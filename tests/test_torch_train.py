@@ -22,6 +22,8 @@ test against the softmax.
 
 from __future__ import annotations
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +40,7 @@ from demodel_tpu_torch.models import moe as tmoe
 from demodel_tpu_torch.ops import flash_attention as tfa
 from demodel_tpu_torch.parallel import Mesh, make_mesh
 from demodel_tpu_torch.parallel import pipeline as tpipe
+from demodel_tpu_torch.utils import trace as ttrace
 from demodel_tpu_torch.utils.metrics import HUB, labeled
 from demodel_tpu_torch.utils.tree import leaves
 
@@ -368,9 +371,10 @@ def test_stages_stack_unstack_and_take_one_device():
             call()
 
 
-def test_gpipe_span_only_under_export_tracing(monkeypatch):
+def test_gpipe_span_only_under_export_tracing(monkeypatch, tmp_path):
     """The ``compute.gpipe`` span (which synchronises the device) runs
-    only with ``DEMODEL_TRACE`` set."""
+    only under the export tier (``DEMODEL_TRACE`` set), as the
+    reference's, and lands in its JSONL."""
     key = labeled("stage_duration_seconds", span="compute.gpipe")
     stacked = tpipe.stack_stages(_tstages(_stages(2, seed=4)))
     xmb = torch.zeros(2, 3, DIM)
@@ -380,12 +384,21 @@ def test_gpipe_span_only_under_export_tracing(monkeypatch):
         return h["count"] if h else 0
 
     monkeypatch.delenv("DEMODEL_TRACE", raising=False)
-    before = count()
-    tpipe.pipeline_apply(_tstage, stacked, xmb)
-    assert count() == before
-    monkeypatch.setenv("DEMODEL_TRACE", "1")
-    tpipe.pipeline_apply(_tstage, stacked, xmb)
-    assert count() == before + 1
+    ttrace.reset()
+    try:
+        before = count()
+        tpipe.pipeline_apply(_tstage, stacked, xmb)
+        assert count() == before and ttrace.mode() == "observe"
+        sink = tmp_path / "trace.jsonl"
+        monkeypatch.setenv("DEMODEL_TRACE", str(sink))
+        ttrace.reset()
+        tpipe.pipeline_apply(_tstage, stacked, xmb)
+        assert count() == before + 1 and ttrace.mode() == "export"
+        assert [json.loads(line)["name"] for line in
+                sink.read_text().splitlines()] == ["compute.gpipe"]
+    finally:
+        monkeypatch.delenv("DEMODEL_TRACE", raising=False)
+        ttrace.reset()
 
 
 # ------------------------------------------------------- sampled decode
