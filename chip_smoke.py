@@ -205,7 +205,27 @@ Phases, each printing one line:
    memory), f32 at 4 layers, one step (loss and momentum within 1e-4 of
    the plain path's); one MoE step (``MoEConfig.tiny()``) on the card
    equal to the same code on the CPU within 1e-5; a GPipe forward and
-   gradient (4 stages of 16) equal to sequential execution within 1e-5.
+   gradient (4 stages of 16) equal to sequential execution within 1e-5;
+15. mesh — multi-device as far as one card shows it. NCCL at world size
+   1 (``init_process_group`` on a ``FileStore`` in a temporary
+   directory): ``make_mesh()`` spans the group on ``cuda:0``;
+   ``replicate``, ``allgather_axis``, ``psum_across``, ``redistribute``
+   and ``fingerprint`` on CUDA tensors equal their inputs; a
+   Llama-2-7B-width 2-layer bf16 model on ``make_mesh(1, sp=1)`` gives
+   the one-device prefill logits bit for bit and its greedy tokens;
+   ``deliver_safetensors`` with ``ici_complete`` equals it without, byte
+   for byte, on a 7B-width 2-layer file, and a 2-layer Q4_K_M
+   ``deliver_gguf`` on the group's mesh equals it with no group; the
+   group is destroyed. Then the ring's per-rank schedule for 4 ranks in
+   this process (each rank's body over the in-process rotation: the K1
+   launches and windows of a real ring, not a multi-GPU run) at
+   Llama-2-7B's attention widths (H=G=32 and GQA H=32/G=8, D=128, B=1)
+   at T=4096, 4093 (padded) and 9 (a block of padding), causal and
+   bidirectional, in bf16, f16 and f32: within 2e-2, 2e-3 and 1e-4 of
+   the plain dense attention, n² K1 launches a call; the ring's device
+   time beside K1 over the whole sequence (reported); and the ring's dq,
+   dk, dv at n=2, T=1024 in bf16 and f32 within the dtype's limit of
+   autograd through the plain dense attention.
 
 Then the card line from nvidia-smi, a JSON line with the kernels, and
 last ``{"ok": true, "device": {...}}``. Any failed phase raises (exit
@@ -4244,6 +4264,309 @@ def phase_train() -> dict[str, int]:
     return {"wgmma_bf16": n_bf16, "tf32x3_f32": n_f32}
 
 
+#: the ring schedule: Llama-2-7B's attention (H=G=32, D=128) and GQA at
+#: H=32, G=8; B=1, n ranks, a sequence the ring divides, one it pads, and
+#: one whose last block is all padding (kv_len 0 there)
+RING_N = 4
+RING_T = (4096, 4093, 9)
+RING_HEADS = ((32, 32), (32, 8))
+RING_D = 128
+#: the ring's gradients: n=2 at T=1024 (the JAX package's grad tests run
+#: at sp=2 and sp=4)
+RING_GRAD_N, RING_GRAD_T = 2, 1024
+MESH_LAYERS = 2
+MESH_NEW = 8
+
+
+class _BytesStore:
+    """The store surface the sinks read, over blobs in host memory (a
+    ``buffer=`` delivery turns ``ici_complete`` off, a store read does
+    not)."""
+
+    def __init__(self, blobs: dict[str, bytes]):
+        self.blobs = blobs
+
+    def size(self, key: str) -> int:
+        return len(self.blobs[key])
+
+    def pread(self, key: str, length: int, offset: int = 0):
+        return memoryview(self.blobs[key])[offset:offset + length]
+
+    def pread_into(self, key: str, out, offset: int = 0) -> int:
+        mv = memoryview(out).cast("B")
+        src = memoryview(self.blobs[key])[offset:offset + mv.nbytes]
+        mv[:len(src)] = src
+        return len(src)
+
+
+def _mesh_world1() -> dict:
+    """NCCL at world size 1: the mesh over the group, each collective on
+    CUDA tensors, Llama on ``make_mesh(1, sp=1)`` against no mesh, and
+    placement with and without ``ici_complete`` (safetensors) or the mesh
+    (GGUF). Returns the row and the K1 launches of the mesh model."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from demodel_tpu_torch.formats import gguf
+    from demodel_tpu_torch.models import llama
+    from demodel_tpu_torch.ops import flash_attention as fa
+    from demodel_tpu_torch.parallel import collectives as col
+    from demodel_tpu_torch.parallel.mesh import GROUP_TIMEOUT, make_mesh
+    from demodel_tpu_torch.sink import deliver_gguf, deliver_safetensors
+
+    row: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "rdzv"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                timeout=GROUP_TIMEOUT)
+        try:
+            mesh = make_mesh()
+            if not (mesh.distributed and mesh.device == torch.device(
+                    "cuda", 0) and mesh.size == 1):
+                raise AssertionError(f"mesh over the group: {mesh}")
+            row["backend"] = dist.get_backend(mesh.group("tp"))
+            gen = torch.Generator("cuda").manual_seed(70)
+            x = torch.randn(8, 64, generator=gen, device="cuda")
+            checks = {
+                "replicate": col.replicate(x, mesh, ("tp", None)),
+                "allgather_axis": col.allgather_axis(x, mesh, "tp"),
+                "psum_across": col.psum_across(x, mesh, "dp"),
+                "redistribute": col.redistribute(x, mesh, ("tp", None),
+                                                 (None, "tp")),
+                "fingerprint": col.fingerprint(x, mesh, ("tp", None)),
+            }
+            want_fp = col.fingerprint(x)
+            torch.cuda.synchronize()
+            bad = [k for k, v in checks.items() if not torch.equal(
+                v, want_fp if k == "fingerprint" else x)]
+            if bad:
+                raise AssertionError(f"collectives at world size 1: {bad}")
+            row["collectives"] = sorted(checks)
+
+            # Llama-2-7B widths, 2 layers, bf16: a mesh of one is the
+            # one-device path, bit for bit
+            cfg = llama.LlamaConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
+                                    intermediate_size=INTER,
+                                    num_hidden_layers=MESH_LAYERS,
+                                    dtype="bfloat16")
+            params = llama.init_params(
+                torch.Generator("cuda").manual_seed(71), cfg, "cuda")
+            one = make_mesh(1, sp=1)
+            tokens = torch.tensor([_prompt(torch.Generator().manual_seed(72),
+                                           128, VOCAB)], device="cuda")
+            with torch.inference_mode():
+                plain = llama.forward(params, tokens, cfg)
+                _reset_k1()
+                on_mesh = llama.forward(params, tokens, cfg, one)
+                toks = llama.generate(params, cfg, tokens, MESH_NEW,
+                                      mesh=one)
+                launches = dict(fa.launches_by_kernel)
+                toks_plain = llama.generate(params, cfg, tokens, MESH_NEW)
+            if not torch.equal(plain, on_mesh) or \
+                    not torch.equal(toks, toks_plain):
+                raise AssertionError("Llama on make_mesh(1, sp=1) differs "
+                                     "from the one-device path")
+            row["llama"] = {"tokens": toks[0].tolist(), "bit_equal": True,
+                            "k1": launches}
+            del params, plain, on_mesh
+
+            # placement: ici_complete changes no byte; the GGUF on the
+            # group's mesh equals the one without a group
+            src, files = _hf_checkpoint(MESH_LAYERS, seed=73)
+            del src
+            blobs = {k: v for k, v in files.items()
+                     if k.endswith(".safetensors")}
+            st_store = _BytesStore(blobs)
+            for key in blobs:
+                a = deliver_safetensors(st_store, key, mesh=mesh,
+                                        ici_complete=False)
+                b = deliver_safetensors(st_store, key, mesh=mesh,
+                                        ici_complete=True)
+                if set(a.arrays) != set(b.arrays) or any(
+                        not torch.equal(a.arrays[n], b.arrays[n])
+                        for n in a.arrays):
+                    raise AssertionError(f"ici_complete changed {key}")
+            row["ici_complete_tensors"] = sum(
+                len(deliver_safetensors(st_store, k, mesh=mesh).arrays)
+                for k in blobs)
+            buf, _, _ = _build_gguf("q4_k_m", MESH_LAYERS, seed=74)
+            grid = deliver_gguf(None, "q4_k_m", mesh=mesh, buffer=buf)
+        finally:
+            dist.destroy_process_group()
+    # the same file with no process group up: the one-device mesh
+    plain_g = deliver_gguf(None, "q4_k_m", mesh=make_mesh(), buffer=buf)
+    torch.cuda.synchronize()
+    if set(grid.arrays) != set(plain_g.arrays) or any(
+            not torch.equal(grid.arrays[n], plain_g.arrays[n])
+            for n in grid.arrays):
+        raise AssertionError("deliver_gguf on the NCCL mesh differs")
+    row["gguf_q4_k_m_tensors"] = len(gguf.parse(buf).tensors)
+    row["group_destroyed"] = not dist.is_initialized()
+    return row, launches
+
+
+def _ring_schedule(q, k, v, n: int, causal: bool, T: int):
+    """Every rank's body of an ``n``-rank ring in this process over
+    :func:`local_rotation`: the K1 launches and windows each rank of a
+    real ring makes. Returns the whole [B, T, H, D] output."""
+    import torch
+
+    from demodel_tpu_torch.ops import ring_attention as ra
+
+    pad = (-T) % n
+    blocks = [torch.chunk(torch.nn.functional.pad(
+        t, (0, 0, 0, 0, 0, pad)), n, dim=1) for t in (q, k, v)]
+    outs = [ra.ring_attention(
+        blocks[0][my], blocks[1][my], blocks[2][my],
+        ra.local_rotation(list(blocks[1]), list(blocks[2]), my), my, n,
+        causal=causal, kv_len=T if pad else None, use_flash=True)
+        for my in range(n)]
+    return torch.cat(outs, dim=1)[:, :T]
+
+
+def _ring_forward() -> tuple[list[dict], dict[str, int]]:
+    import torch
+
+    from demodel_tpu_torch.ops import flash_attention as fa
+    from demodel_tpu_torch.ops import ring_attention as ra
+
+    rows, total = [], {k: 0 for k in K1_BY_DTYPE.values()}
+    k1 = {"k1": lambda name: any(n in name for n in K1_KERNELS),
+          "all": lambda name: True}
+    for dtype, kernel in K1_BY_DTYPE.items():
+        dt = getattr(torch, dtype)
+        for H, G in RING_HEADS:
+            for T in RING_T:
+                gen = torch.Generator("cuda").manual_seed(80 + T + G)
+                q, k, v = (torch.randn(1, T, h, RING_D, generator=gen,
+                                       device="cuda").to(dt)
+                           for h in (H, G, G))
+                for causal in (True, False):
+                    _reset_k1()
+                    with torch.inference_mode():
+                        out = _ring_schedule(q, k, v, RING_N, causal, T)
+                    torch.cuda.synchronize()
+                    launched = dict(fa.launches_by_kernel)
+                    with torch.inference_mode():
+                        plain = ra.dense_attention(q.float(), k.float(),
+                                                   v.float(), causal=causal)
+                    err = (out.float() - plain).abs().max().item()
+                    del plain
+                    r = {"dtype": dtype, "H": H, "G": G, "T": T,
+                         "causal": causal, "n": RING_N,
+                         "k1_launches": launched[kernel],
+                         "max_abs_err": err, "tol": TOL[dtype]}
+                    if (launched[kernel] != RING_N ** 2 or
+                            sum(launched.values()) != RING_N ** 2 or
+                            not math.isfinite(err) or err > TOL[dtype]):
+                        raise AssertionError(f"ring schedule: {r}")
+                    total[kernel] += launched[kernel]
+                    if T == RING_T[0] and G == H:
+                        r.update(_ring_device_ms(q, k, v, causal, T, k1))
+                    rows.append(r)
+    return rows, total
+
+
+def _ring_device_ms(q, k, v, causal: bool, T: int, groups) -> dict:
+    """Device ms of the ring schedule (K1's and every kernel's) beside K1
+    over the whole sequence, from the profiler; reported, never a
+    gate."""
+    import torch
+
+    from demodel_tpu_torch.ops import flash_attention as fa
+
+    def ring():
+        with torch.inference_mode():
+            _ring_schedule(q, k, v, RING_N, causal, T)
+
+    def whole():
+        with torch.inference_mode():
+            fa.flash_attention(q, k, v, causal=causal)
+
+    ring()
+    whole()
+    got = _device_ms(ring, groups, {"k1": lambda c: sum(c.values())
+                                    == RING_N ** 2})
+    one = _device_ms(whole, groups, {"k1": lambda c: sum(c.values()) == 1})
+    out = {"ring_k1_device_ms": got and got[0]["k1"],
+           "ring_device_ms": got and got[0]["all"],
+           "whole_k1_device_ms": one and one[0]["k1"]}
+    if got and one and one[0]["k1"]:
+        out["ring_k1_over_whole"] = got[0]["k1"] / one[0]["k1"]
+        out["ring_all_over_whole"] = got[0]["all"] / one[0]["k1"]
+    return out
+
+
+def _ring_grads() -> list[dict]:
+    """dq, dk and dv of a loss linear in the output through the ring
+    schedule (K1 a step, its recompute backward, the rotation handing
+    blocks over in one process) against autograd through the plain
+    dense attention in f32 on the same (dtype-rounded) tensors. The
+    limit is the dtype's tolerance times the gradient's largest value
+    (at least 1): a key every query sees gathers a gradient of ~10 at
+    T=1024, where one bf16 ulp is 0.0625."""
+    import torch
+
+    from demodel_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        gen = torch.Generator("cuda").manual_seed(90)
+        H, G, T = 32, 8, RING_GRAD_T
+        base = [torch.randn(1, T, h, RING_D, generator=gen, device="cuda")
+                .to(dt) for h in (H, G, G)]
+        w = torch.randn(1, T, H, RING_D, generator=gen, device="cuda")
+        grads = {}
+        for path in ("ring", "plain"):
+            if path == "ring":
+                qkv = [t.detach().clone().requires_grad_() for t in base]
+                out = _ring_schedule(*qkv, RING_GRAD_N, True, T)
+            else:
+                qkv = [t.detach().float().requires_grad_() for t in base]
+                out = fa.reference_attention_lse(*qkv, causal=True)[0]
+            (out.float() * w).sum().backward()
+            grads[path] = [t.grad for t in qkv]
+        torch.cuda.synchronize()
+        if any(g is None or not torch.isfinite(g.float()).all()
+               for g in grads["ring"]):
+            raise AssertionError(f"ring grads {dtype}: missing or not "
+                                 "finite")
+        err, limit = {}, {}
+        for n, a, b in zip(("dq", "dk", "dv"), grads["ring"],
+                           grads["plain"]):
+            err[n] = (a.float() - b).abs().max().item()
+            limit[n] = TOL[dtype] * max(1.0, b.abs().max().item())
+        r = {"dtype": dtype, "n": RING_GRAD_N, "T": T, "H": H, "G": G,
+             "max_abs_err": err, "limit": limit, "tol": TOL[dtype]}
+        if any(err[n] > limit[n] for n in err):
+            raise AssertionError(f"ring grads: {r}")
+        rows.append(r)
+    return rows
+
+
+def phase_mesh() -> dict[str, int]:
+    """Multi-device, as far as one card shows it: NCCL at world size 1
+    (the mesh, the collectives, Llama on a mesh of one, placement with
+    ``ici_complete``), then the ring's per-rank schedule for n ranks in
+    this process (a single-process schedule, not multi-GPU) against the
+    plain dense attention, and its gradients. Returns the K1 launches by
+    kernel of the mesh model and the ring schedule."""
+    t0 = time.perf_counter()
+    world1, launches = _mesh_world1()
+    rows, total = _ring_forward()
+    for kernel, n in launches.items():
+        total[kernel] += n
+    grads = _ring_grads()
+    _say("mesh", world_size_1=world1,
+         ring=("single-process schedule of an n-rank ring on one card, "
+               "not multi-GPU"), ring_cases=rows, ring_grads=grads,
+         k1_launches=total, phase_s=time.perf_counter() - t0)
+    return total
+
+
 def _dequant_entries(rows: dict[str, dict], launches: dict[str, int]
                      ) -> list[dict]:
     """The kernels-line entries of the dequant kernels: q8_0, q4_0, and
@@ -4346,7 +4669,7 @@ def main() -> int:
         k1[kernel] = k1.get(kernel, 0) + n
     k1["wgmma_f16"] += phase_openllama("float16", seed=11)
     k1["tf32x3_f32"] += phase_openllama("float32", seed=13)
-    for phase in (phase_families, phase_train):
+    for phase in (phase_families, phase_train, phase_mesh):
         for kernel, n in phase().items():
             k1[kernel] += n
     _say("done", total_s=round(time.perf_counter() - t0, 3))

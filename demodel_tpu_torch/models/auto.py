@@ -25,6 +25,7 @@ from demodel_tpu_torch.models import bert as bert_mod
 from demodel_tpu_torch.models import gpt2 as gpt2_mod
 from demodel_tpu_torch.models import llama as llama_mod
 from demodel_tpu_torch.models.common import DTYPES
+from demodel_tpu_torch.parallel.mesh import one_device
 from demodel_tpu_torch.models.hf_loader import (
     load_bert_params,
     load_gpt2_params,
@@ -59,7 +60,10 @@ def model_from_pull(store, report, mesh=None, placement=None):
 
     ``placement`` (a delivered :class:`~demodel_tpu_torch.sink.hbm.Placement`)
     supplies the weights when given; otherwise they are delivered from
-    the store now onto ``mesh`` (default: the CUDA device).
+    the store now onto ``mesh`` (default: the CUDA device). Over a mesh
+    of several ranks (Llama only; GPT-2 and BERT are ROADMAP A7's part
+    two) the params are this rank's shards under ``param_shardings`` and
+    the function runs on the mesh.
     """
     files = report["files"] if isinstance(report, dict) else [
         vars(f) for f in report.files]
@@ -84,8 +88,14 @@ def model_from_pull(store, report, mesh=None, placement=None):
     if len(stored) == 1 and stored <= set(DTYPES):
         cfg = dataclasses.replace(cfg, dtype=stored.pop())
     device = next(iter(weights.values())).device
-    params = load(weights, cfg, device=device)
-    fn = functools.partial(run, cfg=cfg)
+    if model_type == "llama":
+        params = load(weights, cfg, device=device, mesh=mesh,
+                      specs=placement.specs)
+    else:
+        if mesh is not None:
+            one_device(mesh, f"{model_type} from a pull")
+        params = load(weights, cfg, device=device)
+    fn = functools.partial(run, cfg=cfg, mesh=mesh)
     log.info("auto: built %s from pulled snapshot (%d tensors, %s)",
              model_type, len(weights), cfg.dtype)
     return fn, params, cfg

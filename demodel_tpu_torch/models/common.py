@@ -58,12 +58,15 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def momentum_sgd(loss_fn: Callable[[dict, torch.Tensor], torch.Tensor],
-                 lr: float = 1e-3, momentum: float = 0.9):
+                 lr: float = 1e-3, momentum: float = 0.9,
+                 reduce_grads: Callable[[list], list] | None = None):
     """``(init_opt, train_step)`` for ``loss_fn(params, tokens)``:
     ``init_opt(params)`` is a zero tree like ``params``;
     ``train_step(params, opt, tokens)`` returns ``(new_params, new_opt,
     loss)`` with ``new_opt = momentum·opt + grad`` and ``new_params =
-    params − lr·new_opt``, new trees (the inputs are not modified)."""
+    params − lr·new_opt``, new trees (the inputs are not modified).
+    ``reduce_grads`` maps the gradient leaves before the update (the sum
+    over the ranks of a split batch)."""
 
     def init_opt(params):
         return tree_map(torch.zeros_like, params)
@@ -73,6 +76,8 @@ def momentum_sgd(loss_fn: Callable[[dict, torch.Tensor], torch.Tensor],
         with torch.enable_grad():
             loss = loss_fn(inputs, tokens)
             grads = torch.autograd.grad(loss, leaves(inputs))
+        if reduce_grads is not None:
+            grads = reduce_grads(list(grads))
         grads = unflatten(params, grads)
         with torch.no_grad():
             new_opt = tree_map(lambda m, g: momentum * m + g, opt_state,

@@ -70,7 +70,7 @@ def load_model(model: str, cfg, *, source: str = "hf",
 
     if mesh is None:
         mesh = make_mesh(device=device)
-    dev = mesh.devices.flat[0]
+    dev = mesh.device
     with trace.span("serve.load-model", model=model, source=source):
         report, placed = delivery.pull_to_hbm(
             model, cfg, source=source, revision=revision,

@@ -14,8 +14,15 @@ one host-to-device copy:
   and are dequantized on the device (:mod:`demodel_tpu_torch.ops.dequant`),
   shard-wise when the rows align to quant blocks.
 
-One device only: a mesh of more devices raises (ROADMAP A7 brings
-placement over several GPUs and the ``ici_complete`` all-gather leg).
+Over a mesh that spans a ``torch.distributed`` world (one process per
+rank, :mod:`~demodel_tpu_torch.parallel.mesh`), each rank reads only its
+own shard's byte range and keeps only that shard: the placement holds
+local shards, and :attr:`Placement.specs` records each one's partition
+spec (where the JAX package holds global arrays). ``ici_complete``
+stages a replicated tensor row-split over every rank, so each reads
+1/N of it, and all-gathers the rest
+(:func:`~demodel_tpu_torch.parallel.collectives.redistribute`). One
+process driving several devices raises.
 """
 
 from __future__ import annotations
@@ -28,9 +35,12 @@ import torch
 from demodel_tpu_torch.formats import gguf as gguf_mod
 from demodel_tpu_torch.formats import safetensors as st
 from demodel_tpu_torch.ops import dequant
-from demodel_tpu_torch.parallel.mesh import Mesh, make_mesh, one_device
+from demodel_tpu_torch.parallel import collectives
+from demodel_tpu_torch.parallel.mesh import (Mesh, local_device, make_mesh,
+                                             shard_index)
 from demodel_tpu_torch.sink.plan import ShardingPlan
 from demodel_tpu_torch.utils import trace
+from demodel_tpu_torch.utils.env import env_flag
 from demodel_tpu_torch.utils.logging import get_logger
 
 log = get_logger("sink")
@@ -41,6 +51,9 @@ _HOST = torch.device("cpu")
 class Placement:
     arrays: dict[str, torch.Tensor] = field(default_factory=dict)
     mesh_desc: str = ""
+    #: each tensor's partition spec on the mesh (its ``arrays`` entry is
+    #: this rank's shard under it; ``()`` is the whole tensor)
+    specs: dict[str, tuple] = field(default_factory=dict)
     #: background finalizer thread (deferred cache commit + manifest) set
     #: by a pull that defers its cache commit — join via :meth:`finalize`
     finalizer: object = None
@@ -105,11 +118,15 @@ def _slices_contiguous_rows(idx: tuple, shape: tuple[int, ...]) -> tuple[int, in
 
 def _device_indices(mesh: Mesh, spec: tuple, shape: tuple[int, ...]
                     ) -> dict[torch.device, tuple]:
-    """Each device's index into a tensor of ``shape`` placed by ``spec``,
-    as jax's ``addressable_devices_indices_map`` gives it. On one device
-    that is the whole tensor; more devices raise."""
-    dev = one_device(mesh, f"placement (spec {spec})")
-    return {dev: (slice(None),) * len(shape)}
+    """This process's device and its index into a tensor of ``shape``
+    placed by ``spec``, as jax's ``addressable_devices_indices_map``
+    gives it for the devices a process addresses."""
+    dev = local_device(mesh, f"placement (spec {spec})")
+    return {dev: shard_index(mesh, spec, shape)}
+
+
+def _fully_replicated(spec: tuple) -> bool:
+    return all(p is None for p in spec)
 
 
 def _read_into_from(read_at):
@@ -132,18 +149,29 @@ def place_tensor(
     read_into=None,
     ici_complete: bool = False,
 ) -> torch.Tensor:
-    """Place one tensor reading only its device's byte range.
+    """Place this rank's shard of one tensor reading only its byte range.
 
     ``read_at(offset, length)`` serves file-absolute ranges; ``start`` is
-    the tensor's first data byte. The range lands in a host buffer —
-    through ``read_into(offset, out)`` straight into it when given — and
-    goes to the device in one copy, then casts there to ``cast_to``.
+    the tensor's first data byte. An axis-0 shard (or a whole tensor) is
+    one range; another layout reads the tensor and slices it. The range
+    lands in a host buffer — through ``read_into(offset, out)`` straight
+    into it when given — and goes to the device in one copy, then casts
+    there to ``cast_to``.
 
-    ``ici_complete`` is accepted and ignored: the all-gather that
-    completes replicas across chips has no meaning on one GPU (ROADMAP
-    A7 brings it)."""
-    del ici_complete
+    ``ici_complete``: a replicated tensor whose rows divide the world and
+    that holds at least 4096 bytes a rank is staged row-split over every
+    axis (each rank reads 1/N of it) and completed by an all-gather, so
+    each byte is read once across the ranks."""
     itemsize = dtype.itemsize
+    n_total = mesh.size
+    if (ici_complete and _fully_replicated(spec) and shape
+            and shape[0] % n_total == 0
+            and int(np.prod(shape, dtype=np.int64)) * itemsize
+            >= 4096 * n_total):
+        stage = (tuple(mesh.axis_names),) + (None,) * (len(shape) - 1)
+        staged = place_tensor(read_at, shape, dtype, start, mesh, stage,
+                              cast_to, read_into=read_into)
+        return collectives.redistribute(staged, mesh, stage, spec)
     if read_into is None:
         read_into = _read_into_from(read_at)
     row_bytes = int(np.prod(shape[1:], dtype=np.int64)) * itemsize if shape else itemsize
@@ -161,9 +189,9 @@ def place_tensor(
         r0, r1 = rows
         arr = read_range(start + r0 * row_bytes, (r1 - r0) * row_bytes,
                          (r1 - r0,) + shape[1:])
-    else:  # a 0-d tensor
+    else:  # another layout, or a 0-d tensor
         total = int(np.prod(shape, dtype=np.int64)) * itemsize
-        arr = read_range(start, total, shape)[idx]
+        arr = read_range(start, total, shape)[idx].contiguous()
     arr = arr.to(device)
     if cast_to is not None and arr.dtype != cast_to:
         arr = arr.to(cast_to)
@@ -171,6 +199,19 @@ def place_tensor(
 
 
 # ------------------------------------------------------------- safetensors
+
+
+def _ici_complete_default() -> bool:
+    """Replicated tensors complete over the collectives by default when
+    several processes place (each reads 1/N); ``DEMODEL_ICI_COMPLETE``
+    forces either way."""
+    import torch.distributed as dist
+
+    env = env_flag("DEMODEL_ICI_COMPLETE")
+    if env is not None:
+        return env
+    return dist.is_available() and dist.is_initialized() \
+        and dist.get_world_size() > 1
 
 
 def _default_plan(mesh: Mesh | None, plan: ShardingPlan | None
@@ -196,28 +237,33 @@ def deliver_safetensors(
     tensor ranges are views of host memory — no store read on the
     delivery path. ``skip`` names tensors already placed: their ranges
     are neither read nor transferred. The mesh defaults to the CUDA
-    device; ``ici_complete`` is accepted and ignored (ROADMAP A7)."""
-    del ici_complete
+    device (or the process group's world). ``ici_complete`` (default:
+    :func:`_ici_complete_default`) is off with ``buffer``: the whole file
+    is in this host's memory already."""
     mesh, plan = _default_plan(mesh, plan)
+    if ici_complete is None:
+        ici_complete = _ici_complete_default()
     if buffer is not None:
         mv = memoryview(buffer).cast("B")
         read_at = lambda off, ln: mv[off:off + ln]  # noqa: E731 — zero-copy
         read_into = None
         index = st.read_index_from(read_at, total_size=len(mv))
+        ici_complete = False
     else:
         read_at = lambda off, ln: store.pread(key, ln, off)  # noqa: E731
         read_into = lambda off, out: store.pread_into(key, out, off)  # noqa: E731
         index = st.read_index_from(read_at, total_size=store.size(key))
     out = Placement(mesh_desc=f"{mesh.shape}")
-    for name, spec in index.tensors.items():
+    for name, t in index.tensors.items():
         if skip and name in skip:
             continue
-        dtype = st.torch_dtype(spec.dtype)
+        dtype = st.torch_dtype(t.dtype)
+        spec = plan.sharding_for(name, t.shape, dtype.itemsize)
         out.arrays[name] = place_tensor(
-            read_at, spec.shape, dtype, spec.start, mesh,
-            plan.sharding_for(name, spec.shape, dtype.itemsize), cast_to,
-            read_into=read_into,
+            read_at, t.shape, dtype, t.start, mesh, spec, cast_to,
+            read_into=read_into, ici_complete=ici_complete,
         )
+        out.specs[name] = spec
     return out
 
 
@@ -256,9 +302,11 @@ def deliver_gguf(
     buffer=None,
 ) -> Placement:
     """Land a GGUF blob's tensors on the device as ``out_dtype``
-    (dequantized there, shard-wise when the rows align to quant blocks,
-    else through :func:`~demodel_tpu_torch.ops.dequant.dequant_gguf_tensor`
-    on the whole tensor). The mesh defaults to the CUDA device."""
+    (dequantized there, shard-wise when the rows align to quant blocks:
+    each rank reads and dequantizes only its rows; else through
+    :func:`~demodel_tpu_torch.ops.dequant.dequant_gguf_tensor` on the
+    whole tensor, then sliced). The mesh defaults to the CUDA device (or
+    the process group's world)."""
     mesh, plan = _default_plan(mesh, plan)
     if buffer is not None:
         mv = memoryview(buffer).cast("B")
@@ -279,14 +327,14 @@ def deliver_gguf(
             r0, r1 = rows
             row_bytes = row_elems // blk_elems * bpb
             raw = read_at(t.start + r0 * row_bytes, (r1 - r0) * row_bytes)
-            # one device: its shard is the whole tensor
             out.arrays[name] = _dequant_shard(
                 t, raw, (r1 - r0,) + t.shape[1:], out_dtype, device)
-            continue
-        # fallback: whole-tensor dequant
-        raw = read_at(t.start, t.nbytes)
-        out.arrays[name] = dequant.dequant_gguf_tensor(
-            t, _split(t, raw), out_dtype, device)
+        else:  # fallback: whole-tensor dequant, then this rank's shard
+            raw = read_at(t.start, t.nbytes)
+            whole = dequant.dequant_gguf_tensor(t, _split(t, raw), out_dtype,
+                                                device)
+            out.arrays[name] = whole[idx].contiguous()
+        out.specs[name] = spec
     return out
 
 
@@ -306,7 +354,12 @@ def deliver_file(store, name: str, key: str, mesh: Mesh,
                  plan: ShardingPlan, cast_to: torch.dtype | None = None,
                  buffer=None, ici_complete: bool | None = None) -> Placement:
     """Deliver one weight file (dispatch by format). ``buffer``
-    short-circuits the store read (memory-first delivery)."""
+    short-circuits the store read (memory-first delivery).
+
+    The streaming sink passes ``ici_complete=False``: its per-file order
+    follows fetch completion, which differs across ranks, and collectives
+    pair by call order — only ordered passes (:func:`deliver_report_to_hbm`)
+    may all-gather."""
     if name.endswith(".safetensors"):
         return deliver_safetensors(store, key, mesh, plan, cast_to,
                                    buffer=buffer, ici_complete=ici_complete)
@@ -320,6 +373,7 @@ def merge_placement(dst: Placement, placed: Placement) -> None:
     if overlap:
         raise ValueError(f"duplicate tensors across shards: {sorted(overlap)[:3]}")
     dst.arrays.update(placed.arrays)
+    dst.specs.update(placed.specs)
 
 
 def deliver_report_to_hbm(store, report, mesh: Mesh | None = None,

@@ -1171,7 +1171,7 @@ def _default_prefetch_depth(mesh: Mesh) -> int:
     copy is a memcpy on the same core, which one fetch thread contends)."""
     if available_cpus() > 1:
         return 2
-    return 1 if mesh.devices.flat[0].type == "cuda" else 0
+    return 1 if mesh.device.type == "cuda" else 0
 
 
 def _deliver_jobs_pipelined(jobs, mesh: Mesh, plan: ShardingPlan,
@@ -1272,6 +1272,7 @@ def _deliver_jobs_pipelined(jobs, mesh: Mesh, plan: ShardingPlan,
             out.arrays[name] = place_tensor(
                 read_at, spec.shape, dtype, spec.start, mesh, sharding,
                 cast_to)
+        out.specs[name] = sharding
 
     # phase accounting: fetch wall vs place wall tells a network-bound
     # pull from a device-transfer-bound one. Under prefetch overlap the
@@ -1534,7 +1535,7 @@ def _pull_manifest_to_hbm(model, peers, mesh, plan, source, cast_to,
                 report["weight_bytes"] += size
         t_block = time.perf_counter()
         # the single end-of-delivery sync: every copy is dispatched here
-        device = mesh.devices.flat[0]
+        device = mesh.device
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         report["block_secs"] = round(time.perf_counter() - t_block, 3)

@@ -230,9 +230,13 @@ class StreamingSink:
                                                remote_parent=parent,
                                                file=name, bytes=nbytes))
                     with deliver_span as sp:
+                        # ici_complete=False: delivery order here follows
+                        # fetch completion, which differs across ranks,
+                        # and collectives pair by call order
                         placed = deliver_file(self.store, name, key,
                                               self.mesh, self.plan,
-                                              self.cast_to, buffer=buffer)
+                                              self.cast_to, buffer=buffer,
+                                              ici_complete=False)
                         sp.set_attr("tensors", len(placed.arrays))
                     merge_placement(self.placement, placed)
                     log.debug("streamed %s → %d tensors", name,

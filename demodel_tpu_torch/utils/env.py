@@ -57,16 +57,23 @@ def env_float(name: str, default: float) -> float:
         return default
 
 
-def flash_attn_env() -> bool | None:
-    """``DEMODEL_FLASH_ATTN``: the caller's explicit choice of the fused
-    attention kernel (1/true/yes/on) or the einsum path (0/false/no/off);
-    None when unset or unparseable — the default policy decides."""
-    raw = os.environ.get("DEMODEL_FLASH_ATTN", "").strip().lower()
+def env_flag(name: str) -> bool | None:
+    """A tri-state switch: True for 1/true/yes/on, False for
+    0/false/no/off, None when unset or unparseable (the default policy
+    decides)."""
+    raw = os.environ.get(name, "").strip().lower()
     if raw in _TRUE:
         return True
     if raw in _FALSE:
         return False
     return None
+
+
+def flash_attn_env() -> bool | None:
+    """``DEMODEL_FLASH_ATTN``: the caller's explicit choice of the fused
+    attention kernel (1/true/yes/on) or the einsum path (0/false/no/off);
+    None when unset or unparseable — the default policy decides."""
+    return env_flag("DEMODEL_FLASH_ATTN")
 
 
 def gen_block_tokens() -> int:
