@@ -4276,6 +4276,9 @@ RING_D = 128
 RING_GRAD_N, RING_GRAD_T = 2, 1024
 MESH_LAYERS = 2
 MESH_NEW = 8
+#: the serving leg of the mesh phase: Llama-2-7B's widths, bf16, 4 layers
+#: (2.1 GB), served by GenEngine on the NCCL mesh and with no mesh
+MESH_SERVE_LAYERS = 4
 
 
 class _BytesStore:
@@ -4299,11 +4302,148 @@ class _BytesStore:
         return len(src)
 
 
+def _serve_mix(engine, url: str, prompts) -> list[list[int]]:
+    """The slice phase's mix through ``engine`` (installed, served at
+    ``url``): request 0 alone, 1 and 2 over ``/generate`` joining its
+    running batch, 3 joining it too, then the 512-token one alone over
+    ``/generate``; each request's tokens."""
+    results: dict[int, list[int]] = {}
+    errors: list[BaseException] = []
+
+    def via_http(i: int) -> None:
+        try:
+            results[i] = _generate_http(url, prompts[i], MAX_NEW)
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    r0 = engine.submit(prompts[0], MAX_NEW)
+    it = r0.iter_tokens(timeout=600)
+    next(it)
+    threads = [threading.Thread(target=via_http, args=(i,)) for i in (1, 2)]
+    for t in threads:
+        t.start()
+    next(it)
+    r3 = engine.submit(prompts[3], MAX_NEW)
+    results[0] = r0.result(timeout=600)
+    results[3] = r3.result(timeout=600)
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        raise errors[0]
+    via_http(4)
+    if errors:
+        raise errors[0]
+    return [results[i] for i in range(len(prompts))]
+
+
+def _hist(name: str, before: dict) -> tuple[float, int]:
+    """``stage_duration_seconds{span=name}``'s (sum, count) since
+    ``before`` (a ``HUB.histograms()`` snapshot)."""
+    from demodel_tpu_torch.utils.metrics import HUB, labeled
+
+    key = labeled("stage_duration_seconds", span=name)
+    now = HUB.histograms().get(key, {"sum": 0.0, "count": 0})
+    was = before.get(key, {"sum": 0.0, "count": 0})
+    return now["sum"] - was["sum"], now["count"] - was["count"]
+
+
+def _mesh_engines() -> tuple[dict, dict[str, int]]:
+    """GenEngine on the NCCL group's mesh of one and with no mesh, over
+    one seeded 7B-width bf16 model, in turns (mesh, none, none, mesh):
+    each run serves the slice phase's mix (``serve.boot`` and
+    ``/generate``). Gates: every run's tokens equal, K1 once a layer a
+    prefill on the mesh engine (counts reset just before each run and
+    read just after it), every lease back. Reported: each run's decode
+    tokens/s, and on the mesh the plan broadcast's and the verdict's mean
+    time against a decode step's. Returns the row and every run's K1
+    launches."""
+    import torch
+
+    from demodel_tpu_torch import serve
+    from demodel_tpu_torch.models import llama
+    from demodel_tpu_torch.ops import flash_attention as fa
+    from demodel_tpu_torch.parallel.mesh import make_mesh
+    from demodel_tpu_torch.serve import http
+    from demodel_tpu_torch.utils.metrics import HUB
+
+    cfg = llama.LlamaConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
+                            intermediate_size=INTER,
+                            num_hidden_layers=MESH_SERVE_LAYERS,
+                            dtype="bfloat16")
+    params = llama.init_params(torch.Generator("cuda").manual_seed(75), cfg,
+                               "cuda")
+    pgen = torch.Generator().manual_seed(76)
+    prompts = [_prompt(pgen, n, VOCAB) for n in (*PROMPT_LENS, LONG_PROMPT)]
+    want = cfg.num_hidden_layers * len(prompts)
+    mesh = make_mesh(1)
+    runs: list[dict] = []
+    launches: dict[str, int] = {}
+    for leg in ("mesh", "no_mesh", "no_mesh", "mesh"):
+        before = HUB.histograms()
+        _reset_k1()
+        engine = serve.boot(params, cfg, mesh if leg == "mesh" else None,
+                            device="cuda", kv_mb=1024,
+                            max_new_tokens=MAX_NEW, max_batch=8,
+                            queue_limit=16)
+        server = http.start()
+        t0 = time.perf_counter()
+        try:
+            tokens = _serve_mix(engine, f"{server.url}/generate", prompts)
+        finally:
+            engine.stop()
+            server.stop()
+            serve.install(None)
+        serve_s = time.perf_counter() - t0
+        k1 = dict(fa.launches_by_kernel)
+        for kernel, n in k1.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        decode_s, steps = _hist("serve.decode-step", before)
+        decoded = engine.describe()["tokens"]["decode"]
+        run = {"leg": leg, "serve_s": serve_s, "tokens": tokens, "k1": k1,
+               "k1_launches": fa.launches, "decode_steps": steps,
+               "decode_tokens": decoded, "decode_step_s": decode_s,
+               "decode_tok_s": decoded / decode_s,
+               "kv_in_use_blocks": engine.pool.describe()["in_use_blocks"]}
+        if leg == "mesh":
+            plan_s, plans = _hist("serve.plan", before)
+            verdict_s, verdicts = _hist("serve.verdict", before)
+            plan_ms, verdict_ms = 1e3 * plan_s / plans, \
+                1e3 * verdict_s / verdicts
+            step_ms = 1e3 * decode_s / steps
+            run.update(plans=plans, plan_ms_mean=plan_ms, verdicts=verdicts,
+                       verdict_ms_mean=verdict_ms,
+                       decode_step_ms_mean=step_ms,
+                       plan_share_of_decode_step=plan_ms / step_ms,
+                       lockstep_share_of_decode_step=(
+                           (plan_ms + verdict_ms) / step_ms))
+            if fa.launches != want or k1["wgmma_bf16"] != want:
+                raise AssertionError(f"mesh engine K1 launches {k1}, "
+                                     f"expected {want} on wgmma_bf16")
+        runs.append(run)
+    if any(r["tokens"] != runs[0]["tokens"] for r in runs):
+        raise AssertionError("GenEngine on make_mesh(1) served other tokens "
+                             "than with no mesh")
+    if any(r["kv_in_use_blocks"] for r in runs) or any(
+            len(t) != MAX_NEW for r in runs for t in r["tokens"]):
+        raise AssertionError(f"engine runs: {runs}")
+    tokens = runs[0]["tokens"]
+    for r in runs:
+        del r["tokens"]
+    del params
+    torch.cuda.empty_cache()
+    return {"model": f"Llama-2-7B widths, {MESH_SERVE_LAYERS} layers, bf16, "
+                     "seeded", "prompt_lens": [len(p) for p in prompts],
+            "first_tokens": [t[:4] for t in tokens], "card": _smi(),
+            "runs": runs}, launches
+
+
 def _mesh_world1() -> dict:
     """NCCL at world size 1: the mesh over the group, each collective on
-    CUDA tensors, Llama on ``make_mesh(1, sp=1)`` against no mesh, and
-    placement with and without ``ici_complete`` (safetensors) or the mesh
-    (GGUF). Returns the row and the K1 launches of the mesh model."""
+    CUDA tensors, Llama on ``make_mesh(1, sp=1)`` against no mesh,
+    GenEngine serving on the group's mesh against no mesh
+    (:func:`_mesh_engines`), and placement with and without
+    ``ici_complete`` (safetensors) or the mesh (GGUF). Returns the row and
+    the K1 launches of the mesh model and the engines."""
     import tempfile
 
     import torch
@@ -4369,8 +4509,14 @@ def _mesh_world1() -> dict:
                 raise AssertionError("Llama on make_mesh(1, sp=1) differs "
                                      "from the one-device path")
             row["llama"] = {"tokens": toks[0].tolist(), "bit_equal": True,
-                            "k1": launches}
+                            "k1": dict(launches)}
             del params, plain, on_mesh
+            torch.cuda.empty_cache()
+
+            # GenEngine on the group's mesh against no mesh
+            row["serve"], served = _mesh_engines()
+            for kernel, n in served.items():
+                launches[kernel] = launches.get(kernel, 0) + n
 
             # placement: ici_complete changes no byte; the GGUF on the
             # group's mesh equals the one without a group
@@ -4549,11 +4695,12 @@ def _ring_grads() -> list[dict]:
 
 def phase_mesh() -> dict[str, int]:
     """Multi-device, as far as one card shows it: NCCL at world size 1
-    (the mesh, the collectives, Llama on a mesh of one, placement with
-    ``ici_complete``), then the ring's per-rank schedule for n ranks in
-    this process (a single-process schedule, not multi-GPU) against the
-    plain dense attention, and its gradients. Returns the K1 launches by
-    kernel of the mesh model and the ring schedule."""
+    (the mesh, the collectives, Llama on a mesh of one, GenEngine serving
+    on it, placement with ``ici_complete``), then the ring's per-rank
+    schedule for n ranks in this process (a single-process schedule, not
+    multi-GPU) against the plain dense attention, and its gradients.
+    Returns the K1 launches by kernel of the mesh model, the engines and
+    the ring schedule."""
     t0 = time.perf_counter()
     world1, launches = _mesh_world1()
     rows, total = _ring_forward()

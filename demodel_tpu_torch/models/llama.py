@@ -468,20 +468,28 @@ def forward(params, tokens: torch.Tensor, cfg: LlamaConfig,
 # ------------------------------------------------------------ decode path
 
 
+def cache_heads(cfg: LlamaConfig, mesh: Mesh | None = None) -> int:
+    """Hkv': the kv heads this rank's attention reads on ``mesh``, which
+    its KV cache holds — ``len(_kv_index)`` where ``tp`` divides H but
+    not Hkv, Hkv/tp where it divides both, Hkv otherwise."""
+    par = _par(cfg, mesh)
+    G = cfg.num_key_value_heads
+    if _tp(par) and par.heads:
+        G = len(par.kv_index) if par.kv_index is not None else G // par.tp
+    return G
+
+
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                dtype: torch.dtype | None = None,
                device: str | torch.device | None = None,
                mesh: Mesh | None = None):
     """Per-layer zero ``(k, v)`` pairs, each [batch, max_len, Hkv', hd]
-    (Hkv' the kv heads this rank's attention reads on ``mesh``), in
-    ``dtype`` (default ``cfg.dtype``) on ``device`` (default cuda)."""
+    (Hkv' the kv heads this rank's attention reads on ``mesh``,
+    :func:`cache_heads`), in ``dtype`` (default ``cfg.dtype``) on
+    ``device`` (default cuda)."""
     dt = dtype or cfg.torch_dtype
     dev = resolve(device)
-    par = _par(cfg, mesh)
-    G = cfg.num_key_value_heads
-    if _tp(par) and par.heads:
-        G = len(par.kv_index) if par.kv_index is not None else G // par.tp
-    shape = (batch, max_len, G, cfg.head_dim)
+    shape = (batch, max_len, cache_heads(cfg, mesh), cfg.head_dim)
     return [(torch.zeros(shape, dtype=dt, device=dev),
              torch.zeros(shape, dtype=dt, device=dev))
             for _ in range(cfg.num_hidden_layers)]

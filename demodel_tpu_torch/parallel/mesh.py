@@ -16,7 +16,8 @@ over the axes, ``tp`` fastest, as ``jax.devices()`` fills the reference's
 array) is rank ``r``, and each rank drives its own device — ``cuda:
 LOCAL_RANK``, or the CPU for a gloo group asked for with ``device="cpu"``.
 Every named axis gets a sub-group over the ranks that differ only in
-that axis (:meth:`Mesh.group`), each created with the mesh's timeout, and
+that axis (:meth:`Mesh.group`), and the mesh a group of all its ranks
+(:attr:`Mesh.world_group`), each created with the mesh's ``timeout``;
 :attr:`Mesh.coords` is this rank's coordinate on each axis. With no
 process group, the mesh is one process's devices (the CUDA devices
 present, or the CPU); placement and the models take such a mesh only
@@ -34,9 +35,12 @@ import torch
 
 from demodel_tpu_torch.device import resolve
 
-#: how long a collective on a mesh's sub-group may wait for its peers
-#: before it raises (a rank that never reaches it would hang the rest)
+#: how long a collective on a mesh's groups may wait for its peers
+#: before it raises (a rank that never reaches it would hang the rest),
+#: unless ``make_mesh(timeout=)`` says otherwise
 GROUP_TIMEOUT = datetime.timedelta(seconds=120)
+#: the key of the group over every rank in :attr:`Mesh.groups`
+_ALL = "*"
 
 
 @dataclass(frozen=True)
@@ -47,8 +51,12 @@ class Mesh:
     #: ``torch.distributed`` world (its rank there); None when one
     #: process drives every device of the mesh
     rank: int | None = None
-    #: axis name → the sub-group of this rank along that axis
+    #: axis name → the sub-group of this rank along that axis (and
+    #: ``"*"`` → the group of every rank)
     groups: dict = field(default_factory=dict, compare=False, repr=False)
+    #: how long a collective on these groups waits for its peers
+    timeout: datetime.timedelta = field(default=GROUP_TIMEOUT,
+                                        compare=False, repr=False)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -82,6 +90,11 @@ class Mesh:
             raise ValueError("a mesh outside a torch.distributed world has "
                              "no process groups")
         return self.groups[axis]
+
+    @property
+    def world_group(self):
+        """The group of every rank of the mesh (made with its timeout)."""
+        return self.group(_ALL)
 
 
 def axis_sizes(n: int, *, dp: int | None = None, sp: int | None = None,
@@ -129,9 +142,10 @@ def _world_device(device) -> torch.device:
 
 
 def _axis_groups(shape: tuple[int, ...], names: tuple[str, ...],
-                 rank: int) -> dict:
-    """One sub-group per axis holding ``rank``. Every rank creates every
-    group of every axis in the same order, as ``new_group`` requires."""
+                 rank: int, timeout: datetime.timedelta) -> dict:
+    """One sub-group per axis holding ``rank``, then the group of every
+    rank. Every rank creates every group in the same order, as
+    ``new_group`` requires."""
     import torch.distributed as dist
 
     ranks = np.arange(int(np.prod(shape))).reshape(shape)
@@ -139,16 +153,21 @@ def _axis_groups(shape: tuple[int, ...], names: tuple[str, ...],
     for ax, name in enumerate(names):
         lines = np.moveaxis(ranks, ax, -1).reshape(-1, shape[ax])
         for line in lines:
-            g = dist.new_group([int(r) for r in line], timeout=GROUP_TIMEOUT)
+            g = dist.new_group([int(r) for r in line], timeout=timeout)
             if rank in line:
                 groups[name] = g
+    groups[_ALL] = dist.new_group(list(range(ranks.size)), timeout=timeout)
     return groups
 
 
 def make_mesh(n_devices: int | None = None, *, dp: int | None = None,
               sp: int | None = None, ep: int | None = None,
               pp: int | None = None, tp: int | None = None,
-              device: str | torch.device | None = None) -> Mesh:
+              device: str | torch.device | None = None,
+              timeout: datetime.timedelta = GROUP_TIMEOUT) -> Mesh:
+    """The mesh of ``n_devices`` (all by default) with the given axis
+    sizes (:func:`axis_sizes`). Over a process group, its groups give up
+    on a peer after ``timeout``; every rank must pass the same value."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
@@ -164,7 +183,8 @@ def make_mesh(n_devices: int | None = None, *, dp: int | None = None,
         arr[:] = [torch.device(n) for n in names]
         shape = tuple(sizes.values())
         return Mesh(arr.reshape(shape), tuple(sizes), rank,
-                    _axis_groups(shape, tuple(sizes), rank))
+                    _axis_groups(shape, tuple(sizes), rank, timeout),
+                    timeout)
     dev = resolve(device)
     if dev.type == "cuda":
         devices = [torch.device("cuda", i)

@@ -9,6 +9,12 @@ onto the device as the shards arrive), the model built from the pulled
 process-wide engine that :mod:`demodel_tpu_torch.serve.http` serves
 ``/generate`` from. :func:`boot` does the last step over in-memory
 params.
+
+Over a mesh of several ranks (one process each, ``torchrun``) every rank
+calls :func:`load_model` or :func:`boot` with the same arguments: each
+places and keeps its own shards and runs its engine in lockstep with
+rank 0's, and only rank 0's engine is installed, so only rank 0 answers
+``/generate``.
 """
 
 from __future__ import annotations
@@ -46,11 +52,14 @@ def current() -> GenEngine | None:
         return _current
 
 
-def boot(params, cfg, **engine_kw) -> GenEngine:
+def boot(params, cfg, mesh=None, **engine_kw) -> GenEngine:
     """Start an engine over in-memory params and install it. ``device``
-    (in ``engine_kw``) defaults to ``cuda``."""
-    engine = GenEngine(params, cfg, **engine_kw).start()
-    install(engine)
+    (in ``engine_kw``) defaults to ``cuda``. On a ``mesh`` of several
+    ranks ``params`` are this rank's shards and only rank 0 installs its
+    engine (:class:`~demodel_tpu_torch.serve.scheduler.GenEngine`)."""
+    engine = GenEngine(params, cfg, mesh, **engine_kw).start()
+    if engine.leader:
+        install(engine)
     return engine
 
 
@@ -61,9 +70,15 @@ def load_model(model: str, cfg, *, source: str = "hf",
     """Cold model boot: pull ``model`` through the store named by ``cfg``
     (a :class:`~demodel_tpu_torch.config.ProxyConfig`), from the peer
     nodes in ``peers`` where they hold it, place its weights on
-    ``device`` (default ``cuda``; or the given one-device ``mesh``),
-    build it, and start serving it. The whole boot is timed into
-    ``stage_duration_seconds{span="serve.load-model"}``."""
+    ``device`` (default ``cuda``) or on ``mesh``, build it, and start
+    serving it. The whole boot is timed into
+    ``stage_duration_seconds{span="serve.load-model"}``.
+
+    Over a ``mesh`` of several ranks every rank calls this with the same
+    arguments but its own ``cfg`` store: each pulls into its own store,
+    keeps its shards of the weights and starts its engine; rank 0's is
+    installed and answers ``/generate``, the others follow it and return
+    their engine uninstalled (``join()`` waits until rank 0 stops)."""
     from demodel_tpu_torch import delivery
     from demodel_tpu_torch.models import auto, llama
     from demodel_tpu_torch.parallel.mesh import make_mesh
@@ -85,7 +100,8 @@ def load_model(model: str, cfg, *, source: str = "hf",
             raise ValueError(
                 f"serving supports llama-family models; {model!r} resolved "
                 f"to {type(mcfg).__name__}")
-        engine = GenEngine(params, mcfg, device=dev, model=model,
+        engine = GenEngine(params, mcfg, mesh, device=dev, model=model,
                            **engine_kw).start()
-    install(engine)
+    if engine.leader:
+        install(engine)
     return engine

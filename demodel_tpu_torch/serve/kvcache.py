@@ -12,6 +12,12 @@ ledger (alloc/free exactness, budget-bounded admission). The engine
 passes no dtype, so a bf16 model's KV is written into and gathered from
 an fp32 pool — and every decode step moves the gathered KV to the card.
 A device-resident pool is later work.
+
+On a mesh of several ranks every rank keeps its own pool of the KV heads
+its attention reads (``llama.cache_heads``), with rank 0's block count
+(``num_blocks=``), and leases the very blocks rank 0 leased
+(``alloc(blocks=)``), so the block ids in rank 0's step plans address
+every rank's pool alike.
 """
 
 from __future__ import annotations
@@ -75,21 +81,28 @@ class KVBlockPool:
 
     ``layers``/``kv_heads``/``head_dim`` fix the block geometry; the byte
     budget (``DEMODEL_GEN_KV_MB`` unless overridden) fixes the block
-    count. Block state sits behind one lock; leased bytes are written
-    lock-free because only the engine thread touches them.
+    count, unless ``num_blocks`` gives it (a rank mirroring rank 0's
+    pool; the budget is then what those blocks take). Block state sits
+    behind one lock; leased bytes are written lock-free because only the
+    engine thread touches them.
     """
 
     def __init__(self, layers: int, kv_heads: int, head_dim: int, *,
                  block_tokens: int | None = None,
                  budget_mb: int | None = None,
-                 dtype: str = "float32"):
+                 dtype: str = "float32",
+                 num_blocks: int | None = None):
         self.block_tokens = int(block_tokens or gen_block_tokens())
         budget_bytes = int(budget_mb if budget_mb is not None
                            else gen_kv_mb()) << 20
         dt = np.dtype(dtype)
         self.block_bytes = (2 * layers * self.block_tokens * kv_heads
                             * head_dim * dt.itemsize)
-        self.num_blocks = max(1, budget_bytes // self.block_bytes)
+        if num_blocks is None:
+            self.num_blocks = max(1, budget_bytes // self.block_bytes)
+        else:
+            self.num_blocks = int(num_blocks)
+            budget_bytes = self.num_blocks * self.block_bytes
         shape = (layers, self.num_blocks, self.block_tokens, kv_heads,
                  head_dim)
         self.k = np.zeros(shape, dt)
@@ -117,15 +130,26 @@ class KVBlockPool:
             return self.num_blocks - len(self._free_list)
 
     # ------------------------------------------------------- alloc/free
-    def alloc(self, n: int) -> BlockLease:
+    def alloc(self, n: int, blocks: list[int] | None = None) -> BlockLease:
         """Lease ``n`` blocks or raise :class:`PoolExhausted` — never a
-        partial grant."""
+        partial grant. ``blocks`` names the ``n`` blocks to lease (a rank
+        mirroring rank 0's lease); one that is not free raises."""
         with self._lock:
             if n > len(self._free_list):
                 raise PoolExhausted(
                     f"need {n} blocks, {len(self._free_list)} free "
                     f"of {self.num_blocks}")
-            blocks = [self._free_list.pop() for _ in range(n)]
+            if blocks is None:
+                blocks = [self._free_list.pop() for _ in range(n)]
+            else:
+                blocks = [int(b) for b in blocks]
+                taken = set(blocks)
+                if len(blocks) != n or len(taken) != n \
+                        or not taken.issubset(self._free_list):
+                    raise PoolExhausted(
+                        f"blocks {blocks} are not {n} free blocks")
+                self._free_list = [b for b in self._free_list
+                                   if b not in taken]
             in_use = self.num_blocks - len(self._free_list)
         self.budget.charge(n * self.block_bytes)
         HUB.inc("gen_kv_blocks_alloc_total", n)

@@ -30,8 +30,13 @@ and cross-fills the rest from its siblings' chunk boards (served by
 :mod:`demodel_tpu_torch.restore.server`), so aggregate origin bytes come
 to about 1× the manifest.
 
-One process addresses one device here: placement over several GPUs and
-the ``ici_complete`` leg are ROADMAP A7. The wire is
+Every rank of a ``torch.distributed`` mesh (one process each, as
+``torchrun`` starts them) calls :func:`pull_manifest_to_hbm` with the
+same arguments: each reads only its own shards' byte windows, and with
+``ici_complete`` a replicated tensor is read 1/N by each rank and
+all-gathered. The ranks pin every read to the manifest's peer, and a
+rank's failure makes every rank raise, after one agreement between
+them at the end of the pull. The wire is
 :class:`~demodel_tpu_torch.utils.faults.HTTPClient` (one connection per
 host per thread) and, for windows of 4 MiB and more on an ``http://``
 peer, the native library's multi-stream window fetch.
@@ -1362,11 +1367,21 @@ def pull_manifest_to_hbm(
     plan: ShardingPlan | None = None,
     source: str = "hf",
     cast_to: torch.dtype | None = None,
+    ici_complete: bool | None = None,
     streams: int | None = None,
     swarm: SwarmScheduler | None = None,
 ):
     """Place ``model`` on the device straight off warm peers, reading only
     byte windows; no store is written on this node.
+
+    Over a mesh of several ranks every rank calls this with the same
+    arguments; each reads only its own shards' windows, in manifest order
+    (the same on every rank, so the collectives pair), and
+    ``ici_complete`` (default :func:`~demodel_tpu_torch.sink.hbm.
+    _ici_complete_default`) reads a replicated tensor 1/N a rank and
+    all-gathers it. A failure on any rank raises ``OSError`` on every
+    rank; the mesh's groups may then be out of step, so a retry runs on a
+    new mesh (``make_mesh``).
 
     ``mesh`` defaults to the CUDA device (a CPU mesh, e.g.
     ``make_mesh(device="cpu")``, places on the CPU). ``swarm``: a
@@ -1397,14 +1412,26 @@ def pull_manifest_to_hbm(
         with trace.span("pull", model=model, source=source,
                         swarm=(swarm.self_id if swarm else None)):
             return _pull_manifest_to_hbm(model, peers, mesh, plan, source,
-                                         cast_to, streams, swarm)
+                                         cast_to, ici_complete, streams,
+                                         swarm)
     finally:
         if window is not None:
             window.stop()
 
 
+def _agree(mesh: Mesh, failed: bool) -> list[int]:
+    """The ranks of ``mesh`` whose part failed, on every rank: one
+    all-gather of a flag over the mesh's world group."""
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(failed)], device=mesh.device)
+    flags = [torch.empty_like(flag) for _ in range(mesh.size)]
+    dist.all_gather(flags, flag, group=mesh.world_group)
+    return [r for r, f in enumerate(flags) if int(f.item())]
+
+
 def _pull_manifest_to_hbm(model, peers, mesh, plan, source, cast_to,
-                          streams, swarm=None):
+                          ici_complete, streams, swarm=None):
     from demodel_tpu_torch.sink.hbm import deliver_gguf, deliver_safetensors
 
     t0 = time.perf_counter()
@@ -1421,6 +1448,7 @@ def _pull_manifest_to_hbm(model, peers, mesh, plan, source, cast_to,
     # everything to the manifest peer and re-raise on failure (a host
     # that retried a file locally would pair its collectives wrongly).
     single = _world_size() == 1
+    pod = mesh.distributed and mesh.size > 1
     if single:
         others = [p.rstrip("/") for p in peers if p.rstrip("/") != peer]
         peer_order = [peer] + _responsive_peers(others)
@@ -1494,7 +1522,7 @@ def _pull_manifest_to_hbm(model, peers, mesh, plan, source, cast_to,
                 report["weight_bytes"] = 0
         report["pipelined"] = pipelined
 
-        if not pipelined:
+        def deliver_files() -> None:
             for f in weight_files:
                 name, key = f["name"], f["key"]
                 size = int(f["size"])
@@ -1517,7 +1545,8 @@ def _pull_manifest_to_hbm(model, peers, mesh, plan, source, cast_to,
                             # cross-shard duplicate guard stays on
                             placed = deliver_safetensors(
                                 reader, key, mesh=mesh, plan=plan,
-                                cast_to=cast_to, skip=resume_skip)
+                                cast_to=cast_to, ici_complete=ici_complete,
+                                skip=resume_skip)
                         else:
                             placed = deliver_gguf(reader, key, mesh=mesh,
                                                   plan=plan)
@@ -1533,6 +1562,27 @@ def _pull_manifest_to_hbm(model, peers, mesh, plan, source, cast_to,
                         from last_err
                 merge_placement(placement, placed)
                 report["weight_bytes"] += size
+
+        if not pipelined and not pod:
+            deliver_files()
+        elif not pipelined:
+            # every rank learns whether any rank failed, so none reports a
+            # placement its siblings lack (a rank blocked in a collective
+            # that a failed sibling skipped raises when the group times out)
+            err: Exception | None = None
+            try:
+                deliver_files()
+            except (OSError, ValueError, RuntimeError) as e:
+                err = e
+            try:
+                failed = _agree(mesh, err is not None)
+            except RuntimeError as e:
+                raise IOError(f"pod pull of {model}: the ranks could not "
+                              f"agree on its outcome ({e})") from (err or e)
+            if failed:
+                raise IOError(f"pod pull of {model} failed on rank(s) "
+                              f"{failed}" + (f": {err}" if err else "")) \
+                    from err
         t_block = time.perf_counter()
         # the single end-of-delivery sync: every copy is dispatched here
         device = mesh.device

@@ -21,7 +21,9 @@ import tracemalloc
 import numpy as np
 import pytest
 
+from demodel_tpu.utils import profiler as jprofiler
 from demodel_tpu.utils import trace as jtrace
+from demodel_tpu_torch.utils import profiler as tprofiler
 from demodel_tpu_torch.utils import trace as ttrace
 
 PKGS = {"port": ttrace, "reference": jtrace}
@@ -36,6 +38,11 @@ def _fresh(monkeypatch, tmp_path):
     for var in _ENV:
         monkeypatch.setenv(var, "")
     monkeypatch.setenv("DEMODEL_RECORDER_DIR", str(tmp_path))
+    # a recorder dump embeds a running profiler's window: a RestoreServer
+    # started by an earlier test on this worker may have left one
+    # package's running
+    for prof in (tprofiler, jprofiler):
+        prof.stop()
     for mod in PKGS.values():
         mod.reset()
     yield

@@ -42,7 +42,9 @@ class Ranks:
         self.generation += 1
         self.dir = self.root / f"group-{self.generation}"
         self.dir.mkdir(parents=True)
-        env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+        # a failed span's flight-recorder dump lands here, not in /tmp
+        env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT),
+                   DEMODEL_RECORDER_DIR=str(self.dir))
         self.procs = []
         for r in range(self.world):
             with open(self.dir / f"stderr-{r}.log", "wb") as log:

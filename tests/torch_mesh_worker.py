@@ -21,6 +21,7 @@ import os
 import sys
 import time
 import traceback
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -30,11 +31,14 @@ import torch.distributed as dist
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from demodel_tpu_torch import serve  # noqa: E402
+from demodel_tpu_torch.config import ProxyConfig  # noqa: E402
 from demodel_tpu_torch.models import auto, llama  # noqa: E402
 from demodel_tpu_torch.ops import ring_attention as ra  # noqa: E402
 from demodel_tpu_torch.parallel import collectives as col  # noqa: E402
 from demodel_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
-from demodel_tpu_torch.sink import hbm  # noqa: E402
+from demodel_tpu_torch.serve import http as serve_http  # noqa: E402
+from demodel_tpu_torch.sink import hbm, remote  # noqa: E402
 
 #: a collective that a peer never reaches raises after this long
 TIMEOUT = datetime.timedelta(seconds=60)
@@ -265,6 +269,292 @@ def case_model_from_pull(args, inp, rank):
         logits = fn(params, _t(inp["tokens"]))
     return {"logits": logits.numpy()}, {"bytes_read": store.bytes_read,
                                         "dtype": cfg.dtype}
+
+
+# ------------------------------------------------- serving over the mesh
+#
+# rank 0 leads (submits, waits, stops); every other rank runs its
+# engine's plans until rank 0 stops it. Each rank records its pool's
+# blocks in use after every plan it runs, so the test can hold the
+# followers' pools to rank 0's at each step.
+
+#: seconds a request or a follower's engine may take here
+SERVE_S = 60.0
+
+
+def _prompts(inp) -> list[list[int]]:
+    flat, lens = inp["prompts"], inp["prompt_lens"]
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    return [flat[a:b].tolist() for a, b in zip(offs[:-1], offs[1:])]
+
+
+def _engine(args, inp, mesh, **kw) -> "serve.GenEngine":
+    cfg = _cfg(args)
+    params = llama.shard_params(unflatten_params(inp), cfg, mesh)
+    kw.setdefault("kv_mb", 4)
+    return serve.GenEngine(params, cfg, mesh, device="cpu",
+                           max_new_tokens=args["new"], **kw)
+
+
+def _log_pool(engine) -> list[int]:
+    """Blocks in use after each plan this rank runs (prefill and decode
+    steps, and every release of leases), in order."""
+    seen: list[int] = []
+    apply, free = engine._apply, engine._free
+
+    def logged_apply(kind, words):
+        out = apply(kind, words)
+        seen.append(engine.pool.in_use_blocks)
+        return out
+
+    def logged_free(rids):
+        free(rids)
+        seen.append(engine.pool.in_use_blocks)
+
+    engine._apply, engine._free = logged_apply, logged_free
+    return seen
+
+
+def _follow(engine) -> dict:
+    """A follower: submit must refuse; then wait for rank 0's stop."""
+    try:
+        engine.submit([1, 2, 3], 2)
+        refused = False
+    except RuntimeError:
+        refused = True
+    return {"refused": refused, "joined": engine.join(SERVE_S)}
+
+
+def _staggered(engine, prompts, new) -> list[list[int]]:
+    """Request 0 alone, 1 and 2 joining its running batch, then 3 (the
+    chip phase's mix)."""
+    r0 = engine.submit(prompts[0], new)
+    it = r0.iter_tokens(timeout=SERVE_S)
+    next(it)
+    reqs = [r0] + [engine.submit(p, new) for p in prompts[1:3]]
+    next(it)
+    reqs += [engine.submit(p, new) for p in prompts[3:]]
+    return [r.result(timeout=SERVE_S) for r in reqs]
+
+
+def case_serve(args, inp, rank):
+    """The staggered mix through ``GenEngine`` on the mesh: rank 0's
+    tokens, each rank's pool log and its blocks in use at the end. The
+    followers are given twice rank 0's KV budget, which must not change
+    their block count."""
+    mesh = mesh_of(args["axes"])
+    engine = _engine(args, inp, mesh, max_batch=args["max_batch"],
+                     kv_mb=4 if rank == 0 else 8)
+    seen = _log_pool(engine)
+    engine.start()
+    meta: dict = {"leader": engine.leader}
+    if engine.leader:
+        try:
+            meta["tokens"] = _staggered(engine, _prompts(inp), args["new"])
+        finally:
+            engine.stop()
+        meta["joined"] = engine.join(SERVE_S)
+    else:
+        meta.update(_follow(engine))
+    meta["in_use"] = engine.pool.in_use_blocks
+    meta["num_blocks"] = engine.pool.num_blocks
+    meta["heads"] = int(engine.pool.k.shape[3])
+    return {"pool_log": np.asarray(seen, np.int64)}, meta
+
+
+def case_serve_stop(args, inp, rank):
+    """``stop()`` on rank 0 with one request running and one waiting."""
+    mesh = mesh_of(args["axes"])
+    engine = _engine(args, inp, mesh, max_batch=1).start()
+    meta: dict = {}
+    if engine.leader:
+        prompts = _prompts(inp)
+        running = engine.submit(prompts[0], args["new"])
+        waiting = engine.submit(prompts[1], args["new"])
+        next(running.iter_tokens(timeout=SERVE_S))
+        engine.stop()
+        meta["errors"] = []
+        for r in (running, waiting):
+            try:
+                r.result(timeout=SERVE_S)
+                meta["errors"].append(None)
+            except RuntimeError as exc:
+                meta["errors"].append(str(exc))
+        meta["generated"] = len(running.tokens)
+        meta["joined"] = engine.join(SERVE_S)
+        meta["outstanding"] = engine.admission.describe()["outstanding"]
+    else:
+        meta.update(_follow(engine))
+    meta["in_use"] = engine.pool.in_use_blocks
+    return {}, meta
+
+
+def case_serve_fail(args, inp, rank):
+    """Rank ``fail_rank``'s ``_decode`` raises at its ``fail_at``-th call
+    on a mesh whose groups time out after ``timeout_s``: every request
+    on rank 0 settles with an error, and every rank's engine ends."""
+    mesh = make_mesh(device="cpu", timeout=datetime.timedelta(
+        seconds=args["timeout_s"]), **args["axes"])
+    engine = _engine(args, inp, mesh, max_batch=4)
+    if rank == args["fail_rank"]:
+        decode, calls = engine._decode, [0]
+
+        def failing(*a):
+            calls[0] += 1
+            if calls[0] == args["fail_at"]:
+                raise RuntimeError("injected decode failure")
+            return decode(*a)
+
+        engine._decode = failing
+    t0 = time.monotonic()
+    engine.start()
+    meta: dict = {}
+    if engine.leader:
+        reqs = [engine.submit(p, args["new"]) for p in _prompts(inp)]
+        meta["errors"], meta["tokens"] = [], []
+        for r in reqs:
+            try:
+                r.result(timeout=SERVE_S)
+                meta["errors"].append(None)
+            except RuntimeError as exc:
+                meta["errors"].append(str(exc))
+            meta["tokens"].append(list(r.tokens))
+        try:
+            engine.submit(_prompts(inp)[0], 1)
+            meta["submit_after"] = "accepted"
+        except RuntimeError as exc:
+            meta["submit_after"] = str(exc)
+    meta["joined"] = engine.join(SERVE_S)
+    meta["stopped_s"] = time.monotonic() - t0
+    if engine.leader:
+        engine.stop()
+    meta["in_use"] = engine.pool.in_use_blocks
+    return {}, meta
+
+
+def case_serve_http(args, inp, rank):
+    """``serve.boot`` on every rank; rank 0 alone installs its engine and
+    answers ``/generate`` (and ``submit``) with the same tokens."""
+    mesh = mesh_of(args["axes"])
+    cfg = _cfg(args)
+    params = llama.shard_params(unflatten_params(inp), cfg, mesh)
+    engine = serve.boot(params, cfg, mesh, device="cpu", kv_mb=4,
+                        max_new_tokens=args["new"])
+    meta: dict = {"installed": serve.current() is engine}
+    try:
+        if engine.leader:
+            server = serve_http.start()
+            try:
+                meta["http"] = [_post_generate(server.url, p, args["new"])
+                                for p in _prompts(inp)]
+                meta["submit"] = [engine.generate(p, args["new"],
+                                                  timeout=SERVE_S)
+                                  for p in _prompts(inp)]
+            finally:
+                server.stop()
+                engine.stop()
+            meta["joined"] = engine.join(SERVE_S)
+        else:
+            meta.update(_follow(engine))
+    finally:
+        serve.install(None)
+    meta["in_use"] = engine.pool.in_use_blocks
+    return {}, meta
+
+
+def _post_generate(url: str, prompt: list[int], n: int) -> list[int]:
+    req = urllib.request.Request(
+        f"{url}/generate", method="POST",
+        data=json.dumps({"prompt": prompt, "max_new_tokens": n}).encode())
+    with urllib.request.urlopen(req, timeout=SERVE_S) as resp:
+        return json.loads(resp.read())["tokens"]
+
+
+def case_serve_load_model(args, inp, rank):
+    """A cold ``serve.load_model`` over the mesh from a Hub, each rank
+    pulling into its own store under ``root/rank-R``."""
+    mesh = mesh_of(args["axes"])
+    root = Path(args["root"]) / f"rank-{rank}"
+    cfg = ProxyConfig(cache_dir=root / "cache", data_dir=root / "data")
+    os.environ["DEMODEL_FETCH_WORKERS"] = "2"
+    engine = serve.load_model(args["model"], cfg, endpoint=args["hub"],
+                              mesh=mesh, device="cpu", kv_mb=4,
+                              max_new_tokens=args["new"])
+    meta: dict = {"installed": serve.current() is engine}
+    try:
+        if engine.leader:
+            try:
+                meta["tokens"] = [engine.generate(p, args["new"],
+                                                  timeout=SERVE_S)
+                                  for p in _prompts(inp)]
+            finally:
+                engine.stop()
+            meta["joined"] = engine.join(SERVE_S)
+        else:
+            meta.update(_follow(engine))
+    finally:
+        serve.install(None)
+    meta["in_use"] = engine.pool.in_use_blocks
+    meta["store"] = sorted(p.name for p in (root / "cache").iterdir())
+    return {}, meta
+
+
+# ------------------------------------------------- the pod pull over ranks
+
+
+def _pull_env(args) -> None:
+    for k, v in args.get("env", {}).items():
+        os.environ[k] = v
+
+
+def _pulled(report, placed, mesh) -> tuple[dict, dict]:
+    out, specs, fps = {}, {}, {}
+    for name, t in placed.arrays.items():
+        out[name] = t.numpy()
+        specs[name] = list(placed.specs[name])
+        fps[name] = col.fingerprint(t, mesh, placed.specs[name]).tolist()
+    return out, {"network_bytes": report["network_bytes"],
+                 "weight_bytes": report["weight_bytes"],
+                 "pipelined": report["pipelined"], "specs": specs,
+                 "fp": fps, "coords": mesh.coords}
+
+
+def case_pod_pull(args, inp, rank):
+    """``pull_manifest_to_hbm`` off the peers onto this rank's shards."""
+    _pull_env(args)
+    mesh = mesh_of(args["axes"])
+    report, placed = remote.pull_manifest_to_hbm(
+        args["model"], args["peers"], mesh=mesh,
+        ici_complete=args.get("ici_complete"))
+    return _pulled(report, placed, mesh)
+
+
+def case_pod_pull_dies(args, inp, rank):
+    """A pull off a peer that dies mid-window (for the ranks in
+    ``dying_ranks``; the others pull off the live peer), on a fresh mesh
+    whose groups time out after ``timeout_s``: the error each rank
+    raised (or None), then the same pull off the live peer on another
+    fresh mesh."""
+    _pull_env(args)
+    timeout = datetime.timedelta(seconds=args["timeout_s"])
+    peer = args["dying"] if rank in args["dying_ranks"] else args["live"]
+    t0 = time.monotonic()
+    meta: dict = {}
+    try:
+        remote.pull_manifest_to_hbm(
+            args["model"], [peer],
+            mesh=make_mesh(device="cpu", timeout=timeout, **args["axes"]),
+            ici_complete=args.get("ici_complete"))
+        meta["error"] = None
+    except OSError as exc:
+        meta["error"] = f"{type(exc).__name__}: {exc}"
+    meta["abort_s"] = time.monotonic() - t0
+    mesh = make_mesh(device="cpu", timeout=timeout, **args["axes"])
+    report, placed = remote.pull_manifest_to_hbm(
+        args["model"], [args["live"]], mesh=mesh)
+    out, retry = _pulled(report, placed, mesh)
+    meta["retry"] = retry
+    return out, meta
 
 
 CASES = {name[5:]: fn for name, fn in dict(globals()).items()
